@@ -1,7 +1,7 @@
-"""fava_tpu: a TPU-native turbulence-statistics engine for FLASH data.
+"""fava_tpu: a JAX turbulence-statistics engine for FLASH data.
 
-Ground-up JAX/XLA/Pallas rebuild of the FAVA analysis package: FLASH
-HDF5 ingest to HBM, AMR->uniform regridding as on-device gathers,
+Ground-up JAX/XLA rebuild of the FAVA analysis package: FLASH HDF5
+ingest to device memory, AMR->uniform regridding as on-device gathers,
 fused profile/spectra reduction kernels, and pod-sharded FFTs over a
 ``jax.sharding.Mesh`` — with the reference's model/mesh/analysis API
 surface preserved.

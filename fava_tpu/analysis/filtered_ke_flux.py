@@ -4,7 +4,7 @@ forward to the active mesh.
 Beyond the reference (which registers only kinetic_energy_spectra,
 reference: fava/analysis/kinetic_energy_spectra.py): the Favre
 scale-decomposition flux Pi_l — the filtered-equation counterpart of
-the spectral transfer — computed with the package's MXU dense DFTs
+the spectral transfer — computed with the package's FFTs
 (ops/coarse_grain.py).
 """
 

@@ -1,7 +1,7 @@
 """Registered flagship_analysis: the fused spectra + Reynolds/Favre
 profile step on a uniform mesh (no reference equivalent — BASELINE
 headline workload as a model-level analysis, with automatic streamed
-out-of-core fallback for volumes beyond device HBM)."""
+out-of-core fallback for volumes beyond device memory)."""
 
 from fava_tpu.models.model import Model
 

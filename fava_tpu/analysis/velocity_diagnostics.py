@@ -5,7 +5,7 @@ reference: fava/analysis/kinetic_energy_spectra.py): Helmholtz
 solenoidal/compressive decomposition, vorticity/dilatation derived
 fields, and enstrophy/helicity shell spectra — the standard
 compressible-turbulence companions of the KE spectrum, computed with
-the same MXU dense-DFT transforms and binning conventions
+the same FFTs and binning conventions
 (ops/velocity.py).
 """
 

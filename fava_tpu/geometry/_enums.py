@@ -1,6 +1,6 @@
 """Geometry enumerations.
 
-TPU-native rebuild of the reference geometry enums
+JAX rebuild of the reference geometry enums
 (reference: fava/geometry/_enums.py:4-37).
 """
 

@@ -13,12 +13,14 @@ device transfer happens in the mesh layer.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict, Iterable, List, Optional, Sequence
+from typing import TYPE_CHECKING, Any, Dict, Iterable, List, Optional, Sequence
 
-import h5py
 import numpy as np
 
 from fava_tpu.utils import HID_T
+
+if TYPE_CHECKING:
+    import h5py
 
 PARAMETER_KINDS = ("real", "integer", "logical", "string")
 
@@ -256,6 +258,8 @@ def write_mesh_file(
     chk_file: bool = False,
 ) -> None:
     """Write a complete FLASH-layout mesh file (uniform/plt/chk)."""
+    import h5py
+
     with h5py.File(str(path), "w") as f:
         write_parameters(f, scalars, runtime_parameters)
         write_block_metadata(
@@ -314,6 +318,8 @@ def write_particle_file(
     real_scalars: Dict[str, float],
     particles: Dict[str, np.ndarray],
 ) -> None:
+    import h5py
+
     names = list(particles.keys())
     nparticles = len(next(iter(particles.values()))) if particles else 0
     with h5py.File(str(path), "w") as f:

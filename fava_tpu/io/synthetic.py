@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -184,8 +184,7 @@ def _scalars_and_params(
     return scalars, runtime
 
 
-def make_amr_file(
-    path: str | Path,
+def amr_snapshot(
     *,
     ncells: Tuple[int, int, int] = (8, 8, 8),
     nblks: Tuple[int, int, int] = (2, 2, 2),
@@ -195,35 +194,35 @@ def make_amr_file(
     fields: Sequence[str] = DEFAULT_FIELDS,
     field_fns: Optional[Dict[str, Callable]] = None,
     time: float = 0.0,
-    chk_file: Optional[bool] = None,
-) -> Path:
-    """Write a synthetic FLASH AMR plt/chk file with analytic field data.
+) -> Dict[str, Any]:
+    """In-memory synthetic AMR snapshot: the scalars, runtime parameters,
+    block metadata and (nB, *ncells) field stacks that
+    :func:`make_amr_file` writes.
 
     ``refine_fn`` region-refines the tree (see :func:`build_amr_tree`);
     ``field_fns`` overrides :func:`default_field_fn` per field name so a
     series of snapshots can carry time-dependent structure (a moving
     flame, a translating turbulent brush)."""
-    path = Path(path)
     domain = (
         np.array([[0.0, 1.0], [0.0, 1.0], [0.0, 1.0]], dtype=np.float64)
         if domain is None
         else np.asarray(domain, dtype=np.float64)
     )
-    if chk_file is None:
-        chk_file = "chk" in path.stem
-
     blocks = build_amr_tree(tuple(nblks), domain, refine, refine_fn=refine_fn)
     nblocks = len(blocks)
 
     bounding_box = np.stack([b.bounds for b in blocks])  # (nB, 3, 2)
-    coordinates = bounding_box.mean(axis=2)
-    block_size = bounding_box[..., 1] - bounding_box[..., 0]
-    node_type = np.array([b.node_type for b in blocks], dtype=np.int32)
-    refine_level = np.array([b.level for b in blocks], dtype=np.int32)
-    gid = -np.ones((nblocks, 15), dtype=np.int32)
-    which_child = -np.ones(nblocks, dtype=np.int32)
-    bflags = -np.ones((nblocks, 1), dtype=np.int32)
-    processor_number = np.zeros(nblocks, dtype=np.int32)
+    metadata = {
+        "coordinates": bounding_box.mean(axis=2),
+        "block size": bounding_box[..., 1] - bounding_box[..., 0],
+        "bounding box": bounding_box,
+        "node type": np.array([b.node_type for b in blocks], dtype=np.int32),
+        "refine level": np.array([b.level for b in blocks], dtype=np.int32),
+        "gid": -np.ones((nblocks, 15), dtype=np.int32),
+        "which child": -np.ones(nblocks, dtype=np.int32),
+        "bflags": -np.ones((nblocks, 1), dtype=np.int32),
+        "processor number": np.zeros(nblocks, dtype=np.int32),
+    }
 
     field_data: Dict[str, np.ndarray] = {}
     for name in fields:
@@ -237,26 +236,57 @@ def make_amr_file(
     scalars, runtime = _scalars_and_params(
         ncells=tuple(ncells), nblks=tuple(nblks), nblocks=nblocks, domain=domain, time=time
     )
+    return {
+        "scalars": scalars,
+        "runtime_parameters": runtime,
+        "metadata": metadata,
+        "fields": field_data,
+    }
 
+
+def make_amr_file(path: str | Path, *, chk_file: Optional[bool] = None, **kwargs) -> Path:
+    """Write a synthetic FLASH AMR plt/chk file with analytic field data
+    (keyword arguments as :func:`amr_snapshot`)."""
+    path = Path(path)
+    if chk_file is None:
+        chk_file = "chk" in path.stem
+    snap = amr_snapshot(**kwargs)
     flash_file.write_mesh_file(
         path,
-        scalars=scalars,
-        runtime_parameters=runtime,
-        metadata={
-            "coordinates": coordinates,
-            "block size": block_size,
-            "bounding box": bounding_box,
-            "node type": node_type,
-            "refine level": refine_level,
-            "gid": gid,
-            "which child": which_child,
-            "bflags": bflags,
-            "processor number": processor_number,
-        },
-        fields=field_data,
+        scalars=snap["scalars"],
+        runtime_parameters=snap["runtime_parameters"],
+        metadata=snap["metadata"],
+        fields=snap["fields"],
         chk_file=chk_file,
     )
     return path
+
+
+def uniform_field_data(
+    ncells: Tuple[int, int, int],
+    *,
+    fields: Sequence[str] = DEFAULT_FIELDS,
+    seed: Optional[int] = None,
+    domain: Optional[np.ndarray] = None,
+) -> Dict[str, np.ndarray]:
+    """The analytic float64 volumes :func:`make_uniform_file` writes;
+    with ``seed`` set, a reproducible random perturbation is added."""
+    bounds = (
+        np.array([[0.0, 1.0], [0.0, 1.0], [0.0, 1.0]], dtype=np.float64)
+        if domain is None
+        else np.asarray(domain, dtype=np.float64)
+    )
+    rng = np.random.default_rng(seed) if seed is not None else None
+    X, Y, Z = _cell_centers(bounds, tuple(ncells))
+    field_data = {}
+    for name in fields:
+        data = default_field_fn(name)(X, Y, Z)
+        if rng is not None:
+            data = data + 0.05 * rng.standard_normal(size=data.shape)
+        if name == "dens":
+            data = np.abs(data) + 0.1
+        field_data[name] = data
+    return field_data
 
 
 def make_uniform_file(
@@ -286,16 +316,7 @@ def make_uniform_file(
 
     bounds = domain.copy()
     if field_data is None:
-        rng = np.random.default_rng(seed) if seed is not None else None
-        X, Y, Z = _cell_centers(bounds, ncells)
-        field_data = {}
-        for name in fields:
-            data = default_field_fn(name)(X, Y, Z)
-            if rng is not None:
-                data = data + 0.05 * rng.standard_normal(size=data.shape)
-            if name == "dens":
-                data = np.abs(data) + 0.1
-            field_data[name] = data
+        field_data = uniform_field_data(ncells, fields=fields, seed=seed, domain=domain)
     else:
         field_data = {k: np.asarray(v, dtype=np.float64) for k, v in field_data.items()}
 
@@ -352,3 +373,96 @@ def make_particle_file(
         particles=particles,
     )
     return path
+
+
+# ---------------------------------------------------------------------------
+# Flame-band AMR catalog: a moving rtflame-style front
+
+FLAME_TIMES = (0.0, 0.25, 0.5)
+FLAME_X0, FLAME_SPEED = 0.9, 0.4  # flame front: x_f(t) = X0 + SPEED * t
+FLAME_HALF_WIDTH = 0.5  # the extracted window is 2 * 0.5 = 1.0 wide
+
+
+def flame_front(t: float) -> float:
+    return FLAME_X0 + FLAME_SPEED * t
+
+
+def flame_field_fns(t: float) -> Dict[str, Callable]:
+    """Analytic snapshot at time t: sigmoid flame at x_f(t), with a
+    turbulent brush whose amplitude peaks on the front (so the
+    Reynolds-stress transverse profile the pipeline's window fit
+    consumes is a smooth bump riding the flame)."""
+    from scipy.special import expit
+
+    xf = flame_front(t)
+
+    def flam(x, y, z):
+        return expit(-(x - xf) / 0.02)
+
+    def amp(x):
+        return 0.2 + np.exp(-(((x - xf) / 0.15) ** 2))
+
+    def dens(x, y, z):
+        return 1.0 + 0.5 * np.sin(2 * np.pi * x) * np.cos(2 * np.pi * y) + 0.6 * flam(x, y, z)
+
+    def temp(x, y, z):
+        return 1.0 + 2.0 * flam(x, y, z)
+
+    def velx(x, y, z):
+        return amp(x) * 0.5 * np.sin(2 * np.pi * y) * np.cos(2 * np.pi * z)
+
+    def vely(x, y, z):
+        return amp(x) * np.sin(2 * np.pi * z + 0.5 * np.cos(2 * np.pi * x))
+
+    def velz(x, y, z):
+        return amp(x) * np.cos(2 * np.pi * y + 0.3 * np.sin(2 * np.pi * x))
+
+    return {"flam": flam, "dens": dens, "temp": temp, "velx": velx, "vely": vely, "velz": velz}
+
+
+def flame_snapshot_kwargs(n: int = 512, block_cells: int = 32, t: float = 0.0) -> Dict[str, Any]:
+    """:func:`amr_snapshot` / :func:`make_amr_file` arguments for the
+    flame-band snapshot at time ``t`` whose refined band regrids to an
+    ``n``^3 window.
+
+    Domain [0,4]x[0,1]^2 with 8x2x2 root blocks 0.5 wide of
+    ``block_cells``^3 cells; blocks within the window half width of the
+    front are refined to the level whose cell width is 1/n (4 levels at
+    n=512 with 32^3 blocks), so the band tracks the front across
+    snapshots like a production AMR run regrids."""
+    ratio = n / (2 * block_cells)
+    level = int(np.log2(ratio)) + 1
+    if level < 1 or 2 ** (level - 1) != ratio:
+        raise ValueError(f"n={n} must be 2 * block_cells * 2^k, got block_cells={block_cells}")
+    xf = flame_front(t)
+
+    def refine_fn(bounds, lvl):
+        near = bounds[0, 1] > xf - FLAME_HALF_WIDTH and bounds[0, 0] < xf + FLAME_HALF_WIDTH
+        return level if near else 1
+
+    return {
+        "ncells": (block_cells,) * 3,
+        "nblks": (8, 2, 2),
+        "domain": np.array([[0.0, 4.0], [0.0, 1.0], [0.0, 1.0]]),
+        "refine_fn": refine_fn,
+        "fields": ("flam", "dens", "temp", "velx", "vely", "velz"),
+        "field_fns": flame_field_fns(t),
+        "time": t,
+    }
+
+
+def make_flame_catalog(
+    data_dir: str | Path,
+    n: int = 512,
+    block_cells: int = 32,
+    times: Sequence[float] = FLAME_TIMES,
+) -> List[Path]:
+    """Write the plt series of :func:`flame_snapshot_kwargs` snapshots."""
+    data_dir = Path(data_dir)
+    data_dir.mkdir(parents=True, exist_ok=True)
+    return [
+        make_amr_file(
+            data_dir / f"rt_hdf5_plt_cnt_{i:04d}", **flame_snapshot_kwargs(n, block_cells, t)
+        )
+        for i, t in enumerate(times, start=1)
+    ]

@@ -1,8 +1,8 @@
 """FLASH AMR mesh: reader, geometry queries, and device-resident analyses.
 
-TPU-native rebuild of the reference FlashAMR class
+JAX rebuild of the reference FlashAMR class
 (reference: fava/mesh/FLASH/_flash.py:44-1659). Field data lives as
-``jax.Array`` stacks of shape (nblocks, nxb, nyb, nzb) in HBM; block
+``jax.Array`` stacks of shape (nblocks, nxb, nyb, nzb) in device memory; block
 bookkeeping stays as small host NumPy arrays; every analysis dispatches
 to the fused jitted kernels in :mod:`fava_tpu.ops`. There is no MPI
 block decomposition — the single-controller runtime owns all blocks and
@@ -15,9 +15,8 @@ import logging
 from enum import Enum
 from functools import cached_property
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Sequence, Tuple
 
-import h5py
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +31,9 @@ from fava_tpu.ops import profiles as profile_ops
 from fava_tpu.ops import regrid as regrid_ops
 from fava_tpu.ops import volume as volume_ops
 from fava_tpu.utils import compute_dtype, timer
+
+if TYPE_CHECKING:
+    import h5py
 
 logger = logging.getLogger(__name__)
 
@@ -150,6 +152,8 @@ class FLASH(Structured):
     # Loading
     def load(self) -> None:
         """Read scalars, runtime parameters, and block metadata (not UNK data)."""
+        import h5py
+
         if self._filename is None or not self._filename.is_file():
             # Fail fast like the reference (whose h5py.File open raises
             # OSError); silently returning left a half-initialized mesh
@@ -205,6 +209,8 @@ class FLASH(Structured):
         self.zmax = float(reals.get("zmax", 1.0))
 
     def load_data(self, names: Optional[Sequence[str]] = None) -> None:
+        import h5py
+
         fields = list(names) if names is not None else list(self.fields)
         with h5py.File(self._filename, "r") as f:
             for field in fields:
@@ -223,6 +229,8 @@ class FLASH(Structured):
             logger.warning("Cannot find %s in dataset", name)
             return None
         if field not in self._data:
+            import h5py
+
             with h5py.File(self._filename, "r") as f:
                 self._read_field(f, field)
         return self._data[field]
@@ -446,9 +454,7 @@ class FLASH(Structured):
         """Vectorized point sampling: {field: values}, plus per-point volume fraction.
 
         The gather runs on device and only the npoints sampled values
-        come back to host — the fields stay HBM-resident (the round-1
-        version pulled each full field to host per snapshot, the one
-        analysis path that ignored the HBM-resident design).
+        come back to host — the fields stay device-resident.
         """
         blk, cells, found = self.locate_points(points, block_list)
         levels = np.asarray(self.refine_level)[blk]
@@ -493,6 +499,8 @@ class FLASH(Structured):
     def _host_field_stack(self, name: str) -> np.ndarray:
         """Host block stack WITHOUT forcing a replicated device copy —
         the sharded regrid places per-device block subsets itself."""
+        import h5py
+
         field = name if name in self.fields else FIELD_MAPPING.get(name)
         if field is None or field not in self.fields:
             raise KeyError(name)
@@ -694,9 +702,8 @@ class FLASH(Structured):
         # With an active device mesh, slab-shard the output over "space"
         # AND distribute the source block stack: each device receives
         # only the blocks its output slab reads (from host, never
-        # materializing the full stack per device), so multi-chip HBM
-        # pools for 1024^3-class trees. Single chip keeps the tile-DMA
-        # Pallas path.
+        # materializing the full stack per device), so the devices'
+        # memory pools for 1024^3-class trees.
         from fava_tpu.parallel import runtime as prt
 
         active_mesh = prt.get_mesh()
@@ -715,7 +722,7 @@ class FLASH(Structured):
         else:
             if sharding is None and active_mesh is not None and n_space > 1:
                 # At 1024^3-class trees this silently forfeits pooled
-                # multi-chip HBM — say so (crop/pad to a divisible
+                # multi-device memory — say so (crop/pad to a divisible
                 # extent to regain the sharded path).
                 logger.warning(
                     "from_amr: output x extent %d not divisible by space axis %d "

@@ -1,6 +1,6 @@
 """FLASH tracer-particle mesh.
 
-TPU-native rebuild of the reference FlashParticles
+JAX rebuild of the reference FlashParticles
 (reference: fava/mesh/FLASH/FlashParticles.py:32-128): reads the
 ``tracer particles`` table with field selection, sorts by tag, and
 exposes device-resident columns plus vectorized particle statistics
@@ -12,7 +12,6 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
 
-import h5py
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -106,6 +105,8 @@ class FlashParticles(Unstructured):
 
     # ------------------------------------------------------------------
     def _load_metadata(self) -> None:
+        import h5py
+
         with h5py.File(self._filename, "r") as f:
             meta = flash_file.read_particle_metadata(f)
         self._intscalars = meta["integer scalars"]
@@ -134,6 +135,8 @@ class FlashParticles(Unstructured):
     ) -> None:
         # Explicit parameters: a *args signature silently ignored a
         # positional fields selection and loaded EVERY column.
+        import h5py
+
         fields = self._fields if fields is None else fields
 
         # Accept long aliases ("density", "velocity-x") for the file's
@@ -182,9 +185,8 @@ class FlashParticles(Unstructured):
             present.append(f)
         if not present:
             return {}
-        # ONE jitted program + ONE fetch for all fields: per-scalar
-        # float() fetches cost a ~27 ms dispatch round trip each on
-        # this backend (4 x nfields of them per series snapshot).
+        # ONE jitted program + ONE fetch for all fields, not one host
+        # round trip per scalar (4 x nfields of them per series snapshot).
         cols = jnp.stack([self.device_column(f) for f in present])
         vals = np.asarray(_stats_fn(cols), dtype=np.float64)
         return {

@@ -1,6 +1,6 @@
 """FLASH uniform-grid mesh (single-block ``hdf5_uniform_`` files).
 
-TPU-native rebuild of the reference FlashUniform
+JAX rebuild of the reference FlashUniform
 (reference: fava/mesh/FLASH/FlashUniform.py:26-458): a slimmer loader
 (no gid/node-type/processor reads) plus the uniform-grid analyses —
 kinetic-energy spectra (pod-sharded FFT), fractal dimension, structure
@@ -11,9 +11,8 @@ from __future__ import annotations
 
 import logging
 from pathlib import Path
-from typing import Any, Dict, Optional, Sequence
+from typing import TYPE_CHECKING, Any, Dict, Optional, Sequence
 
-import h5py
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,12 +27,15 @@ from fava_tpu.ops import structure as structure_ops
 from fava_tpu.parallel import runtime
 from fava_tpu.utils import timer
 
+if TYPE_CHECKING:
+    import h5py
+
 logger = logging.getLogger(__name__)
 
 
 @Model.register_mesh()
 class FlashUniform(FLASH):
-    """Uniform-grid FLASH mesh; field data is a single 3D volume in HBM."""
+    """Uniform-grid FLASH mesh; field data is a single 3D volume in device memory."""
 
     def __init__(self, filename: Optional[str | Path] = None, *args, **kwargs) -> None:
         super().__init__(filename, *args, **kwargs)
@@ -123,6 +125,8 @@ class FlashUniform(FLASH):
 
     def load(self) -> None:
         """Metadata-only load (reference: FlashUniform.py:37-83)."""
+        import h5py
+
         if self._filename is None or not self._filename.is_file():
             # Fail fast like the reference (whose h5py.File open raises
             # OSError); silently returning left a half-initialized mesh
@@ -249,6 +253,10 @@ class FlashUniform(FLASH):
             )
 
         def loader(name: str, x0: int, x1: int) -> np.ndarray:
+            import h5py
+
+            import h5py
+
             if check_fields and name not in self.fields:
                 raise KeyError(name)
             with h5py.File(self._filename, "r") as f:
@@ -269,7 +277,7 @@ class FlashUniform(FLASH):
         """Solenoidal/compressive velocity split (beyond the reference).
 
         Spectral projection on the physical wavenumber grid of this
-        domain; MXU dense forward+inverse DFTs on TPU (ops/velocity.py).
+        domain; forward + inverse FFTs (ops/velocity.py).
         """
         from fava_tpu.ops import velocity as vel_ops
 
@@ -332,7 +340,7 @@ class FlashUniform(FLASH):
         ``boundary="interior"`` drops the periodic wrap for windowed
         uniform extracts (e.g. the pipeline's flame windows).
         ``streamed=True`` takes the out-of-core halo-slab path for 3D
-        volumes beyond one chip's HBM (periodic only;
+        volumes beyond one device's memory (periodic only;
         ops/outofcore.streamed_gradient_stats)."""
         from fava_tpu.ops import gradients as grad_ops
 
@@ -444,10 +452,10 @@ class FlashUniform(FLASH):
         exact solenoidal/compressive energy fractions, vorticity and
         dilatation rms, log-density moments — plus Mach statistics when
         this file carries ``pres`` (per-cell ``gamc`` is used over the
-        scalar ``gamma`` when present). One jit over three forward MXU
+        scalar ``gamma`` when present). One jit over three forward
         transforms (ops/velocity.turbulence_summary); ``streamed=True``
         takes the out-of-core x-slab path for 3D volumes beyond one
-        chip's HBM (ops/outofcore.streamed_turbulence_summary)."""
+        device's memory (ops/outofcore.streamed_turbulence_summary)."""
         from fava_tpu.ops import velocity as vel_ops
 
         if not streamed:
@@ -605,7 +613,7 @@ class FlashUniform(FLASH):
         shell-averaged isotropic curve + per-axis lines with integral
         length scales (ops/twopoint.two_point_correlation; beyond the
         reference — its auto_correlations are TIME correlations).
-        ``streamed=True`` takes the out-of-core path for beyond-HBM 3D
+        ``streamed=True`` takes the out-of-core path for beyond-memory 3D
         volumes: per-axis lines + integral scales only (the shell curve
         needs the full correlation volume;
         ops/outofcore.streamed_two_point_lines)."""
@@ -665,7 +673,7 @@ class FlashUniform(FLASH):
         correlations per axis with L11/L22 integral scales and the
         isotropy ratio L11/(2 L22) (ops/twopoint.velocity_correlations;
         beyond the reference). ``streamed=True`` takes the out-of-core
-        x-slab path for 3D volumes beyond one chip's HBM
+        x-slab path for 3D volumes beyond one device's memory
         (ops/outofcore.streamed_velocity_correlations)."""
         from fava_tpu.ops import twopoint as tp_ops
 
@@ -807,11 +815,11 @@ class FlashUniform(FLASH):
         """Fused spectra + Reynolds/Favre x-profiles in one program.
 
         The headline BASELINE workload as a public API: one jitted step
-        (flagship.uniform_analysis_step) when the volume fits HBM —
+        (flagship.uniform_analysis_step) when the volume fits device memory —
         sharded over an active device mesh — or the streamed
         out-of-core path (ops/outofcore.py) when it does not
         (``streamed=None`` auto-detects against the device memory
-        budget; 1024^3 f32 exceeds a 16 GB chip).
+        budget, ``parallel.runtime.device_memory_bytes``).
         """
         import jax.numpy as jnp
 
@@ -844,13 +852,7 @@ class FlashUniform(FLASH):
             # in-core dispatch OOMed instead of streaming).
             item = jnp.dtype(compute_dtype()).itemsize
             need = 4 * item * ntot + 3 * 2 * item * ntot // 2 + 2 * item * ntot
-            budget = 16e9
-            try:
-                stats = jax.devices()[0].memory_stats() or {}
-                budget = float(stats.get("bytes_limit", budget))
-            except Exception:
-                pass
-            streamed = need > 0.9 * budget
+            streamed = need > 0.9 * runtime.device_memory_bytes()
 
         if streamed:
             from fava_tpu.utils import compute_dtype
@@ -910,7 +912,7 @@ class FlashUniform(FLASH):
         self, xfield: str, yfield: str, weight: Optional[str] = "volume", **kwargs
     ) -> Dict[str, Any]:
         """Per-bin count/mean/std of ``yfield`` conditioned on
-        ``xfield`` — the TPU-native scipy.stats.binned_statistic (one
+        ``xfield`` — a device-side scipy.stats.binned_statistic (one
         fused dispatch; ops/volume.binned_statistic; AMR twin in
         flash_amr.py). Uniform cells share one volume, so
         weight="volume" is the exact unweighted path; "mass" weights

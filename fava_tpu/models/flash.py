@@ -1,6 +1,6 @@
 """FLASH model frontend: file catalogs and load dispatch.
 
-TPU-native rebuild of the reference frontend
+JAX rebuild of the reference frontend
 (reference: fava/model/flash.py:10-169): globs the data directory into
 five catalogs (chk/plt/prt/uni/anl), each addressable "by number"
 (the 4-digit suffix) or "by index" (sorted position), dispatches

@@ -1,6 +1,6 @@
 """Model base class: plugin registries and HDF5 result output.
 
-TPU-native rebuild of the reference Model (reference: fava/model/model.py:12-193):
+JAX rebuild of the reference Model (reference: fava/model/model.py:12-193):
 a directory-backed data model onto which mesh classes and analysis
 functions self-register. Unlike the reference, ``load``/``_load_mesh``
 actually work here — the mesh is selected by each registered mesh
@@ -12,7 +12,6 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
-import h5py
 import numpy as np
 
 from fava_tpu.utils import NotCallableError, timer
@@ -127,12 +126,16 @@ class Model:
     # HDF5 result output
     def save_to_hdf5(self, data: dict, filename: Path | str) -> None:
         """Write a nested dict of results as HDF5 groups/datasets (appending)."""
+        import h5py
+
         _filename = Path(filename)
         mode = "a" if _filename.is_file() else "w"
         with h5py.File(str(_filename), mode) as f:
             self.write_to_hdf5(f, data)
 
     def write_to_hdf5(self, handle, data: dict) -> None:
+        import h5py
+
         for key, values in data.items():
             if isinstance(values, dict):
                 if key in handle and not isinstance(handle[key], h5py.Group):
@@ -151,6 +154,8 @@ class Model:
                 handle.create_dataset(key, data=arr)
 
     def hdf5_key_exists(self, key: str, filename: str | Path) -> bool:
+        import h5py
+
         _filename = Path(filename)
         if not _filename.is_file():
             return False

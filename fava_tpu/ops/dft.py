@@ -1,24 +1,14 @@
-"""3D real FFTs as dense MXU matmuls.
+"""Dense DFT matrices for the streamed (out-of-core) transforms.
 
-XLA's TPU FFT lowering is far off the HBM roofline at flagship sizes:
-measured 49 ms per 512^3 rfftn against ~5 ms of streaming traffic at
-654 GB/s (scripts/tpu_roofline.py, perf_512.json). Applying the DFT as
-a dense (n, n) matrix per axis moves the transform onto the MXU, where
-the n*N multiply-accumulates per axis cost ~2 ms at ~200 TFLOP/s — the
-whole 3D rfft lands near the memory bound instead of 10x above it.
-
-Tradeoffs, by design:
-* Dense DFT is O(n)/element vs FFT's O(log n)/element. On TPU the MXU
-  makes n <= ~1024 matmul-cheap; beyond that a two-stage Cooley-Tukey
-  split would be required (fall back to jnp.fft there).
-* Matmuls emulate f32 with bf16 passes; the depth is the module
-  PRECISION knob (HIGH by default — see its comment). On-chip error of
-  both modes vs the f64 oracle is recorded in VALIDATION.json.
+The in-core paths use ``jnp.fft`` (cuFFT on the GPU). The streamed
+path (ops/outofcore.py) cannot: its x-axis transform couples slabs that
+are never resident together, so it applies the DFT as a dense matrix
+per axis — the z and y axes slab-locally, the x axis one kx-chunk at a
+time — as real einsums on planar (re, im) data. Those einsums run at
+the module ``PRECISION`` (see its comment).
 
 The reference computes np.fft.fftn on every MPI rank redundantly
-(reference: fava/mesh/FLASH/FlashUniform.py:268); this module is the
-single-chip TPU-native replacement for the forward transform feeding
-the spectra (half-spectrum over the trailing axis, like rfftn).
+(reference: fava/mesh/FLASH/FlashUniform.py:268).
 """
 
 from __future__ import annotations
@@ -30,33 +20,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# Above this axis length the dense-DFT flops (O(n)/element) stop being
-# free next to the memory bound; jnp.fft takes over.
-MAX_DENSE_AXIS = 1024
-
-# f32 matmul emulation depth for the DFT matmuls (dft_variants_512.json):
-#   HIGHEST — 20.4 ms per 512^3 transform, ~2.7e-7 field deviation
-#   HIGH    — 12.8 ms,                     ~2.1e-5 field deviation
-#   DEFAULT — one bf16 MXU pass,           ~1e-3 field deviation
-# HIGH is the production default: it nearly halves MXU time and its
-# ~1e-5-level rounding sits far below the discretization error of any
-# turbulence statistic. Set FAVA_DFT_PRECISION=highest (env, read at
-# import) or assign dft.PRECISION for validation-grade transforms; the
-# on-chip error of the high/highest modes is recorded in
-# VALIDATION.json. FAVA_DFT_PRECISION=default is the EXPLORATORY mode:
-# bf16 input rounding (~0.4% per element) is invisible on log-log
-# spectra but unfit for budgets/residuals — and MEASURED NEARLY A WASH
-# (bench 90.4 -> 87.9 ms; ~2 ms/transform): at HIGH the dense DFT is
-# already memory-bound (the three stages stream ~7 GB ≈ 11 ms at the
-# 654 GB/s HBM rate), so dropping 2 of 3 bf16 passes only shaves the
-# small MXU surplus. HIGH keeps ~1e-5 accuracy at essentially the
-# memory-bound floor; there is no meaningful speed below it.
+# Precision of the dense-DFT einsums. An f32 dot on the GPU at
+# Precision.DEFAULT or HIGH runs on the TF32 tensor cores (10-bit
+# mantissa inputs); HIGHEST runs true f32. HIGHEST is the default
+# because the streamed spectra must agree with the in-core cuFFT result
+# to the package's f32 tolerance (1e-5 scale-normalized), which TF32
+# rounding misses; the measured errors of both modes are in PERF.md.
+# FAVA_DFT_PRECISION=high (env, read at import) or assigning
+# dft.PRECISION selects the TF32 mode for exploratory runs.
 _PRECISIONS = {
     "default": jax.lax.Precision.DEFAULT,
     "high": jax.lax.Precision.HIGH,
     "highest": jax.lax.Precision.HIGHEST,
 }
-_prec_name = os.environ.get("FAVA_DFT_PRECISION", "high").strip().lower()
+_prec_name = os.environ.get("FAVA_DFT_PRECISION", "highest").strip().lower()
 if _prec_name not in _PRECISIONS:
     raise ValueError(
         f"FAVA_DFT_PRECISION={_prec_name!r}: expected one of {sorted(_PRECISIONS)}"
@@ -88,184 +65,17 @@ def _dft_mat(n: int, dtype_name: str):
     return np.exp(1j * ang).astype(cdt)
 
 
-def rfft_trailing(x: jax.Array, precision=None) -> jax.Array:
-    """Real -> half-spectrum DFT along the trailing axis (two real matmuls)."""
-    precision = PRECISION if precision is None else precision
-    n = x.shape[-1]
-    rdt = x.dtype.name
-    cr, ci = _rdft_mats(n, rdt)
-    re = jnp.einsum("...z,zk->...k", x, cr, precision=precision)
-    im = jnp.einsum("...z,zk->...k", x, ci, precision=precision)
-    return jax.lax.complex(re, im)
-
-
-def fft_axis(x: jax.Array, axis: int, precision=None) -> jax.Array:
-    """Complex DFT along ``axis`` as one dense matmul (dot_general
-    contracts the axis in place; no materialized transpose)."""
-    precision = PRECISION if precision is None else precision
-    n = x.shape[axis]
-    d = _dft_mat(n, jnp.finfo(x.dtype).dtype.name)  # real counterpart of complex dtype
-    moved = jnp.moveaxis(x, axis, -1)
-    out = jnp.einsum("...b,ab->...a", moved, d, precision=precision)
-    return jnp.moveaxis(out, -1, axis)
-
-
-# NOTE (negative result, scripts/tpu_dft_variants.py): a two-stage
-# four-step Cooley-Tukey split (512 = 4 x 128, keeping one factor at the
-# MXU tile) measured ~36-39 ms per 512^3 transform vs 20.4 ms dense —
-# the twiddle/transpose memory passes and the tiny-factor contraction
-# cost more than the 4x MXU-flop saving. Dense + reduced emulation
-# passes (Precision.HIGH) is the winning configuration.
-
-
-def rfftn_mxu(x: jax.Array, precision=None) -> jax.Array:
-    """rfftn of a real 3D volume via per-axis dense DFT matmuls.
-
-    Matches ``jnp.fft.rfftn`` (unnormalized, half spectrum along the
-    trailing axis) to matmul rounding.
-    """
-    w = rfft_trailing(x, precision)
-    w = fft_axis(w, 1, precision)
-    return fft_axis(w, 0, precision)
-
-
-def planar_complex_matmul(spec, dr, di, re, im, precision=None, karatsuba=False):
+def planar_complex_matmul(spec, dr, di, re, im, precision=None):
     """(dr + i*di) applied to planar (re, im) data via REAL einsums.
 
-    One definition for every planar DFT site (the stacked in-core
-    transform below and both out-of-core stages, ops/outofcore.py) so
-    precision plumbing and algebra fixes land everywhere at once. The
-    caller keeps its exact einsum ``spec`` — the spellings are
-    load-bearing for HLO temp layout in the 1024^3 streamed path.
-
-    ``karatsuba`` uses three einsums instead of four (t3 = (dr+di) @
-    (re+im)); measured SLOWER in-core at 512^3 (docs/perf.md) — only
-    the experiments package passes it (experiments/planar_dft.py).
+    One definition for every planar DFT site (both out-of-core stages,
+    ops/outofcore.py) so precision plumbing and algebra fixes land
+    everywhere at once. The caller keeps its exact einsum ``spec`` —
+    the spellings fix the operand layouts of the streamed path.
     """
     precision = PRECISION if precision is None else precision
 
     def t(m, v):
         return jnp.einsum(spec, m, v, precision=precision)
 
-    if karatsuba:
-        t1, t2 = t(dr, re), t(di, im)
-        t3 = t(dr + di, re + im)
-        return t1 - t2, t3 - t1 - t2
     return t(dr, re) - t(di, im), t(dr, im) + t(di, re)
-
-
-@lru_cache(maxsize=16)
-def _irdft_mats(n: int, dtype_name: str):
-    """Half-complex -> real inverse DFT matrices, each (n//2+1, n).
-
-    x[j] = sum_k w_k/n * (re_k cos(2 pi j k / n) - im_k sin(2 pi j k / n))
-    with Hermitian weights w_0 = w_{n/2} = 1 (self-conjugate modes) and
-    w_k = 2 otherwise — the imaginary parts of the self-conjugate modes
-    multiply sin(0)/sin(pi j) = 0, matching ``np.fft.irfft``'s behavior
-    of ignoring them.
-    """
-    k = np.arange(n // 2 + 1)[:, None]
-    j = np.arange(n)
-    ang = 2.0 * np.pi * j * k / n
-    w = np.full((n // 2 + 1, 1), 2.0)
-    w[0, 0] = 1.0
-    if n % 2 == 0:
-        w[n // 2, 0] = 1.0
-    dt = np.dtype(dtype_name)
-    return (w * np.cos(ang) / n).astype(dt), (-(w * np.sin(ang)) / n).astype(dt)
-
-
-@lru_cache(maxsize=16)
-def _idft_mat(n: int, dtype_name: str):
-    """Inverse complex DFT matrix exp(+2*pi*i*j*k/n)/n, (n, n)."""
-    j = np.arange(n)[:, None]
-    k = np.arange(n)
-    ang = 2.0 * np.pi * j * k / n
-    cdt = np.complex128 if np.dtype(dtype_name) == np.float64 else np.complex64
-    return (np.exp(1j * ang) / n).astype(cdt)
-
-
-def irfft_trailing(x: jax.Array, n: int = None, precision=None) -> jax.Array:
-    """Half-spectrum -> real inverse DFT along the trailing axis.
-
-    ``n`` is the real output length (default even: 2*(m-1) like
-    ``np.fft.irfft``); two real matmuls on the planar re/im parts.
-    """
-    precision = PRECISION if precision is None else precision
-    m = x.shape[-1]
-    n = 2 * (m - 1) if n is None else int(n)
-    if n // 2 + 1 != m:
-        raise ValueError(f"irfft_trailing: output length {n} incompatible with {m} modes")
-    rdt = x.real.dtype.name
-    cr, ci = _irdft_mats(n, rdt)
-    re = jnp.einsum("...k,kj->...j", x.real, cr, precision=precision)
-    im = jnp.einsum("...k,kj->...j", x.imag, ci, precision=precision)
-    return re + im
-
-
-def ifft_axis(x: jax.Array, axis: int, precision=None) -> jax.Array:
-    """Inverse complex DFT along ``axis`` as one dense matmul."""
-    precision = PRECISION if precision is None else precision
-    n = x.shape[axis]
-    d = _idft_mat(n, jnp.finfo(x.dtype).dtype.name)
-    moved = jnp.moveaxis(x, axis, -1)
-    out = jnp.einsum("...b,ab->...a", moved, d, precision=precision)
-    return jnp.moveaxis(out, -1, axis)
-
-
-def irfftn_mxu(x: jax.Array, nz: int = None, precision=None) -> jax.Array:
-    """irfftn of a half-spectrum 3D volume via dense DFT matmuls.
-
-    Inverse of :func:`rfftn_mxu` (trailing axis holds nz//2+1 modes);
-    matches ``jnp.fft.irfftn(x, s=(nx, ny, nz))`` to matmul rounding.
-    """
-    w = ifft_axis(x, 0, precision)
-    w = ifft_axis(w, 1, precision)
-    return irfft_trailing(w, nz, precision)
-
-
-def irfftn_fast(x: jax.Array, nz: int = None) -> jax.Array:
-    """irfftn via the MXU dense-DFT path on TPU, jnp.fft elsewhere.
-
-    Accepts 2D (nx, nz//2+1) or 3D (nx, ny, nz//2+1) half-spectra.
-    """
-    nz = 2 * (x.shape[-1] - 1) if nz is None else int(nz)
-    shape = (*(int(s) for s in x.shape[:-1]), nz)
-    if x.ndim == 2:
-        if all(_dense_axis_ok(s) for s in shape):
-            return irfft_trailing(ifft_axis(x, 0), nz)
-        return jnp.fft.irfftn(x, s=shape, axes=(0, 1))
-    if use_mxu_fft(shape):
-        return irfftn_mxu(x, nz)
-    return jnp.fft.irfftn(x, s=shape, axes=(0, 1, 2))
-
-
-def _dense_axis_ok(n: int) -> bool:
-    """ONE eligibility predicate for the dense-DFT MXU path on a single
-    axis (2 <= n <= MAX_DENSE_AXIS on a TPU backend) — the per-function
-    copies drifted out of use_mxu_fft once already."""
-    return 2 <= int(n) <= MAX_DENSE_AXIS and jax.devices()[0].platform == "tpu"
-
-
-def use_mxu_fft(shape) -> bool:
-    """Dense-DFT path: on TPU, 3D, axes within the matmul-cheap regime."""
-    return len(shape) == 3 and all(_dense_axis_ok(s) for s in shape)
-
-
-def rfftn_fast(x: jax.Array) -> jax.Array:
-    """rfftn via the MXU dense-DFT path on TPU, jnp.fft elsewhere."""
-    if use_mxu_fft(x.shape):
-        return rfftn_mxu(x)
-    return jnp.fft.rfftn(x)
-
-
-def rfft_trailing_fast(x: jax.Array) -> jax.Array:
-    if _dense_axis_ok(x.shape[-1]):
-        return rfft_trailing(x)
-    return jnp.fft.rfft(x, axis=-1)
-
-
-def fft_axis_fast(x: jax.Array, axis: int) -> jax.Array:
-    if _dense_axis_ok(x.shape[axis]):
-        return fft_axis(x, axis)
-    return jnp.fft.fft(x, axis=axis)

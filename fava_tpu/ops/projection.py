@@ -9,7 +9,7 @@ their level — integer BCID origins from ops/regrid.RegridPlan) and
 then upsampled to the finest grid by replication, which is exact for
 a piecewise-constant integrand. One gather + one scatter + one repeat
 per level, all device-side; no full uniform volume is materialized
-(the from_amr route would need the fine-grid cube in HBM first).
+(the from_amr route would need the fine-grid cube in device memory first).
 
 Weighted projections P = integral w f dl / integral w dl project the
 numerator and denominator separately — both are linear along the line

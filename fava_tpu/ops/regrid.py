@@ -1,6 +1,6 @@
 """AMR -> uniform regridding as a single on-device gather.
 
-TPU-native redesign of the reference ``from_amr`` prolongation
+JAX redesign of the reference ``from_amr`` prolongation
 (reference: fava/mesh/FLASH/_flash.py:955-1377), whose inner loop
 builds a Python dict mapping every fine cell to a (leaf, i, j, k)
 source and copies cell-by-cell — the slowest path in the package
@@ -12,7 +12,7 @@ source and copies cell-by-cell — the slowest path in the package
    -> source cell c = (g - block_offset) // 2**(lmax - block_level)
 
 so the entire regrid is integer arithmetic + one flat gather from the
-HBM-resident block stack: no loops, jittable, and trivially sharded
+device-resident block stack: no loops, jittable, and trivially sharded
 over the output volume (each device gathers its slab).
 
 Injection prolongation (cell replication) exactly matches the
@@ -163,7 +163,7 @@ def _build_gather_fns(out_shape, ncells, origin, block_shape, nb_total=None):
     ncx, ncy, ncz = ncells
     ox, oy, oz = origin
     bx, by, bz = block_shape
-    # The flat gather index is computed in int32 when x64 is off (TPU
+    # The flat gather index is computed in int32 when x64 is off (f32
     # production): jnp.take would silently clamp a wrapped-negative
     # index to 0, filling regions with block 0's first cell. Refuse
     # loudly instead; such trees must crop/truncate (like the lookup
@@ -201,7 +201,7 @@ class ShardedRegridPlan:
 
     The output volume is slab-sharded along x over the ``space`` axis;
     each device receives ONLY the source blocks its slab reads (plus
-    boundary overlap), so multi-chip HBM capacity pools for the input
+    boundary overlap), so the devices' memory pools for the input
     block stack instead of replicating it (round-1 gap: every device
     gathered from the full stack). Addresses reference
     _flash.py:1262-1321 at pod scale.
@@ -217,8 +217,8 @@ class ShardedRegridPlan:
             # and falls back to the replicated path; this guards direct
             # regrid_fields_sharded use.
             raise ValueError(
-                f"sharded regrid needs the output x extent ({nx}) to divide "
-                f"the space axis ({n_space}); crop/pad the subdomain or use "
+                f"sharded regrid needs the space axis ({n_space}) to divide "
+                f"the output x extent ({nx}); crop/pad the subdomain or use "
                 "the unsharded regrid_fields"
             )
         self.plan = plan
@@ -365,20 +365,9 @@ def regrid_fields(
     field (replaces the reference's per-field dict-copy loop,
     _flash.py:1262-1321). With ``sharding`` set, the index volume (and
     hence every output field) is slab-sharded over the device mesh.
-    On single-chip TPU with power-of-two blocks, the tile-DMA Pallas
-    kernel (ops/pallas_regrid.py) replaces the gather.
     """
     first = data[fields[0]]
     block_shape = tuple(int(s) for s in first.shape[1:])
-
-    if sharding is None and first.ndim == 4:
-        from fava_tpu.ops import pallas_regrid
-
-        max_scale = (
-            int(plan.block_scales[plan.source_ids].max()) if len(plan.source_ids) else 1
-        )
-        if pallas_regrid.regrid_tiles_supported(block_shape, max_scale):
-            return pallas_regrid.regrid_fields_pallas(plan, data, fields)
 
     flat_fn, gather_fn = _build_gather_fns(
         plan.out_shape,

@@ -1,6 +1,6 @@
 """Kinetic-energy spectra: 3D FFT + spherical shell binning.
 
-TPU-native redesign of the reference's Federrath-derived implementation
+Device-side redesign of the reference's Federrath-derived implementation
 (reference: fava/mesh/FLASH/FlashUniform.py:229-304). Differences by
 design:
 
@@ -23,7 +23,7 @@ NaN for empty shells.
 
 from __future__ import annotations
 
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import Dict, Sequence, Tuple
 
 import jax
@@ -119,30 +119,67 @@ def rfft_power_volumes(ffts, full_shape: Tuple[int, int, int], jy=None, ky=None,
     return total, longi, total - longi, k_abs
 
 
-def static_shell_counts(full_shape, nbins: int):
-    """Static Hermitian shell counts as a device constant — the value
-    every consumer of ``local_spectra_fn`` MUST substitute for its
-    zero-placeholder counts under kernel binning (one helper so no
-    consumer forgets and silently NaNs the spectrum via counts == 0)."""
-    from fava_tpu.ops import pallas_kernels as pk
+@partial(jax.jit, static_argnames=("nbins", "full_nx", "full_nz"))
+def shell_bin_rfft(vols, nbins: int, full_nx: int, full_nz: int, kx0=0):
+    """Hermitian-weighted shell binning of z-rfft half-spectrum volumes.
 
-    adt = accum_dtype()
-    return jnp.asarray(
-        pk.rfft_shell_counts(tuple(int(s) for s in full_shape), int(nbins), str(jnp.dtype(adt)))
-    )
+    ``vols`` is a tuple of (rows, ny, nz//2+1) power volumes: an
+    x-chunk whose first row is global row ``kx0`` (traced int) of a
+    (full_nx, ny, full_nz) grid, or the whole half-spectrum with
+    ``kx0 = 0``. Interior kz planes carry weight 2 and the kz = 0 /
+    kz = n/2 planes weight 1, so the result equals full-grid binning.
+    Shell index floor(|k| + 0.5) with the right-inclusive last edge of
+    scipy.stats.binned_statistic (reference: FlashUniform.py:286-293).
+    Returns (counts (nbins,), sums (len(vols), nbins)); sums over
+    x-chunks add up to the whole-volume result.
+    """
+    rows_x, ny, nzr = vols[0].shape
+    dtype = vols[0].dtype
+    jx = kx0 + jnp.arange(rows_x)
+    kx = jnp.where(jx <= (full_nx - 1) // 2, jx, jx - full_nx).astype(dtype)
+    ky = pfft._wavenumbers(ny, dtype)
+    kz = jnp.arange(nzr).astype(dtype)
+    k_abs = jnp.sqrt(kx[:, None, None] ** 2 + ky[None, :, None] ** 2 + kz[None, None, :] ** 2)
+    jz = jnp.arange(nzr)
+    self_conj = jz == 0
+    if full_nz % 2 == 0:  # Nyquist plane exists only for even extents
+        self_conj = self_conj | (jz == full_nz // 2)
+    weight = jnp.broadcast_to(jnp.where(self_conj, 1.0, 2.0).astype(dtype), k_abs.shape)
+
+    idx = jnp.clip(jnp.floor(k_abs + 0.5).astype(jnp.int32), 0, nbins - 1).ravel()
+    w = jnp.where((k_abs <= (nbins - 0.5)).ravel(), weight.ravel(), 0)
+    counts = jnp.zeros(nbins, dtype=dtype).at[idx].add(w)
+    stacked = jnp.stack([v.ravel() for v in vols]) * w
+    sums = jnp.zeros((len(vols), nbins), dtype=dtype).at[:, idx].add(stacked)
+    return counts, sums
 
 
-def use_kernel_shell_binning(nx: int) -> bool:
-    """One definition of the sharded binning-path choice (Pallas chunk
-    kernel on TPU/interpret vs jnp scatter-add) for every consumer, so
-    the decision — which is baked into cached traces — can be folded
-    into cache keys consistently."""
-    from fava_tpu.ops import pallas_kernels as pk
+@lru_cache(maxsize=8)
+def rfft_shell_counts(full_shape: Tuple[int, int, int], nbins: int, dtype_name: str) -> np.ndarray:
+    """Hermitian shell counts of a full rfft half-spectrum (host NumPy).
 
-    return bool((pk.on_tpu() or pk.FORCE_INTERPRET) and pk._pick_gy(nx))
+    Counts are a pure shape function, so streamed consumers that bin
+    values chunk by chunk take them from here. Returned as a HOST
+    array: a jnp array made inside a jit trace is a tracer, and caching
+    it would leak it into later traces. Integer weights sum exactly in
+    f32 (the largest 512^3 shell is ~8e5 << 2^24).
+    """
+    nx, ny, nz = (int(s) for s in full_shape)
+    nzr = nz // 2 + 1
+    kx = np.fft.fftfreq(nx, 1.0 / nx)
+    ky = np.fft.fftfreq(ny, 1.0 / ny)
+    kz = np.arange(nzr, dtype=np.float64)
+    k_abs = np.sqrt(kx[:, None, None] ** 2 + ky[None, :, None] ** 2 + kz[None, None, :] ** 2)
+    self_conj = kz == 0
+    if nz % 2 == 0:
+        self_conj |= kz == nz // 2
+    weight = np.broadcast_to(np.where(self_conj, 1.0, 2.0), k_abs.shape)
+    shell = np.clip(np.floor(k_abs + 0.5).astype(np.int64), 0, nbins - 1)
+    w = np.where(k_abs <= nbins - 0.5, weight, 0.0)
+    return np.bincount(shell.ravel(), weights=w.ravel(), minlength=nbins)[:nbins].astype(dtype_name)
 
 
-def local_spectra_fn(full_shape, nbins: int, nd: int, axis_name: str, use_kernel_binning: bool):
+def local_spectra_fn(full_shape, nbins: int, nd: int, axis_name: str):
     """Device-local spectra body for use INSIDE a shard_map over ``axis_name``.
 
     Returns ``local(d_loc, *v_loc) -> (counts, sums[3])`` where the
@@ -152,19 +189,11 @@ def local_spectra_fn(full_shape, nbins: int, nd: int, axis_name: str, use_kernel
     single-snapshot shard_map below and the snap x space pod series
     step (flagship.sharded_series_analysis_step), which calls it from
     inside a lax.scan over the local snapshot batch.
-
-    With ``use_kernel_binning`` the returned counts are a placeholder
-    (zeros): shard counts psum to a pure shape function, precomputed on
-    host via ``pallas_kernels.rfft_shell_counts`` — the CALLER
-    substitutes them (see sharded_power_spectra).
     """
     nx, ny, nz = (int(s) for s in full_shape)
     ntot = nx * ny * nz
     nzr = nz // 2 + 1
     adt = accum_dtype()
-
-    from fava_tpu.ops import dft as dftops
-    from fava_tpu.ops import pallas_kernels as pk
 
     def local(d_loc, *v_loc):
         sd = jnp.sqrt(d_loc)
@@ -172,13 +201,10 @@ def local_spectra_fn(full_shape, nbins: int, nd: int, axis_name: str, use_kernel
         for v in v_loc:
             # Real input: rfft along z halves local FFT work and the
             # all_to_all payload; Hermitian weights below make shell
-            # sums exactly equal to the full-grid computation. On TPU
-            # the per-axis transforms are dense MXU DFT matmuls
-            # (ops/dft.py) — XLA's FFT lowering is ~10x off roofline.
-            w = dftops.rfft_trailing_fast(sd * v)
-            w = dftops.fft_axis_fast(w, axis=1)
+            # sums exactly equal to the full-grid computation.
+            w = jnp.fft.fft(jnp.fft.rfft(sd * v, axis=-1), axis=1)
             w = jax.lax.all_to_all(w, axis_name, split_axis=1, concat_axis=0, tiled=True)
-            ffts.append(dftops.fft_axis_fast(w, axis=0) / ntot)
+            ffts.append(jnp.fft.fft(w, axis=0) / ntot)
 
         idx = jax.lax.axis_index(axis_name)
         lo = idx * (ny // nd)
@@ -188,39 +214,19 @@ def local_spectra_fn(full_shape, nbins: int, nd: int, axis_name: str, use_kernel
         jy = lo + jnp.arange(ny // nd)
         total, longi, trans, k_abs = rfft_power_volumes(ffts, (nx, ny, nz), jy=jy, ky=ky)
 
-        if use_kernel_binning:
-            # Pallas mask-loop binning of the local k-slab: XLA's
-            # scatter-add is the slow path on TPU (~174 ms for a
-            # 16M-point scatter measured at 256^3). The chunk kernel's
-            # math is symmetric in the slab/middle axes, so the local
-            # y-slab binning is the x-chunk kernel on the TRANSPOSED
-            # block with the global y offset as the chunk origin.
-            # Values only: shard counts psum to a pure shape function,
-            # precomputed on host (rfft_shell_counts).
-            s_loc = pk.shell_bin_values_rfft_chunk(
-                jnp.swapaxes(total, 0, 1),
-                jnp.swapaxes(longi, 0, 1),
-                nbins,
-                ny,  # slab axis is GLOBAL y
-                nz,
-                lo,
-            )
-            counts = jnp.zeros((nbins,), dtype=adt)  # substituted below
-            sums = s_loc.astype(adt)
-        else:
-            jz = jnp.arange(nzr)
-            self_conj = jz == 0
-            if nz % 2 == 0:  # Nyquist plane exists only for even extents
-                self_conj = self_conj | (jz == nz // 2)
-            weight = jnp.where(self_conj, 1.0, 2.0).astype(adt)
-            weight = jnp.broadcast_to(weight[None, None, :], k_abs.shape)
+        jz = jnp.arange(nzr)
+        self_conj = jz == 0
+        if nz % 2 == 0:  # Nyquist plane exists only for even extents
+            self_conj = self_conj | (jz == nz // 2)
+        weight = jnp.where(self_conj, 1.0, 2.0).astype(adt)
+        weight = jnp.broadcast_to(weight[None, None, :], k_abs.shape)
 
-            bidx = jnp.clip(jnp.floor(k_abs + 0.5).astype(jnp.int32), 0, nbins - 1).ravel()
-            mask = (k_abs <= (nbins - 0.5)).ravel()
-            w_flat = jnp.where(mask, weight.ravel(), 0)
-            counts = jnp.zeros(nbins, dtype=adt).at[bidx].add(w_flat)
-            stacked = jnp.stack([total.ravel(), longi.ravel(), trans.ravel()]).astype(adt)
-            sums = jnp.zeros((3, nbins), dtype=adt).at[:, bidx].add(stacked * w_flat)
+        bidx = jnp.clip(jnp.floor(k_abs + 0.5).astype(jnp.int32), 0, nbins - 1).ravel()
+        mask = (k_abs <= (nbins - 0.5)).ravel()
+        w_flat = jnp.where(mask, weight.ravel(), 0)
+        counts = jnp.zeros(nbins, dtype=adt).at[bidx].add(w_flat)
+        stacked = jnp.stack([total.ravel(), longi.ravel(), trans.ravel()]).astype(adt)
+        sums = jnp.zeros((3, nbins), dtype=adt).at[:, bidx].add(stacked * w_flat)
         return jax.lax.psum(counts, axis_name), jax.lax.psum(sums, axis_name)
 
     return local
@@ -231,47 +237,32 @@ def sharded_power_spectra(dens, vels, mesh, nbins: int, axis_name: str = None):
 
     One shard_map: per-device local 2D FFT -> all_to_all shard transpose
     -> local 1D FFT -> local k-slab powers and scatter binning -> one
-    psum of the (4, nbins) accumulators. Everything rides ICI once; no
-    global reshapes or partitioner-inserted gathers.
+    psum of the (4, nbins) accumulators. The slabs cross the
+    interconnect once; no global reshapes or partitioner-inserted
+    gathers.
     """
     from fava_tpu.parallel import runtime as prt
 
     axis_name = axis_name or prt.SPACE_AXIS
     shape = tuple(int(s) for s in dens.shape)
-    nx, ny, nz = shape
     nd = mesh.shape[axis_name]
-
-    use_kernel_binning = use_kernel_shell_binning(nx)
-    local = local_spectra_fn(shape, nbins, nd, axis_name, use_kernel_binning)
+    local = local_spectra_fn(shape, nbins, nd, axis_name)
 
     from jax.sharding import PartitionSpec as P
 
     spec = P(axis_name, None, None)
     # Replicate over any other mesh axes by naming only the space axis.
-    # check_vma=False: pallas_call outputs carry no varying-mesh-axes
-    # annotation, which the shard_map checker (on by default) rejects.
-    counts, sums = jax.shard_map(
+    return jax.shard_map(
         local,
         mesh=mesh,
         in_specs=(spec,) * (1 + len(vels)),
         out_specs=(P(), P()),
-        check_vma=False,
     )(dens, *vels)
-    if use_kernel_binning:
-        counts = static_shell_counts((nx, ny, nz), nbins)
-    return counts, sums
 
 
 @lru_cache(maxsize=32)
-def _build_spectra_fn(shape: Tuple[int, ...], mesh_key, nbins: int, path_key=None):
-    """Jitted spectra core for a given volume shape (cached per shape/mesh).
-
-    ``path_key`` folds backend-dependent dispatch state (platform +
-    FORCE_INTERPRET) into the cache key: the binning-path choice is
-    baked into the trace, so a trace built under one state must not be
-    reused under another (a stale cached scatter trace silently
-    masked the Pallas shard_map binning in tests).
-    """
+def _build_spectra_fn(shape: Tuple[int, ...], mesh_key, nbins: int):
+    """Jitted spectra core for a given volume shape (cached per shape/mesh)."""
     mesh = mesh_key  # jax.sharding.Mesh is hashable
     ndim = len(shape)
     ntot = int(np.prod(shape))
@@ -298,22 +289,13 @@ def _build_spectra_fn(shape: Tuple[int, ...], mesh_key, nbins: int, path_key=Non
             # Real input: rfft half-spectrum + Hermitian-weighted shell
             # binning — exactly equal to the full-grid result at half
             # the FFT and binning cost.
-            from fava_tpu.ops.pallas_kernels import shell_bin_sums_rfft
-
-            from fava_tpu.ops.dft import rfftn_fast, use_mxu_fft
-
             nx, ny, nz = shape
             sqrt_d = jnp.sqrt(dens)
-            if use_mxu_fft(shape):
-                ffts = [rfftn_fast(sqrt_d * v) / ntot for v in vels]
-            else:
-                fft3 = (
-                    jnp.fft.rfftn(jnp.stack([sqrt_d * v for v in vels]), axes=(1, 2, 3)) / ntot
-                )
-                ffts = [fft3[i] for i in range(len(vels))]
+            fft3 = jnp.fft.rfftn(jnp.stack([sqrt_d * v for v in vels]), axes=(1, 2, 3)) / ntot
+            ffts = [fft3[i] for i in range(len(vels))]
             total, longi, trans, _ = rfft_power_volumes(ffts, (nx, ny, nz))
-            counts, sums = shell_bin_sums_rfft(
-                total.astype(adt), longi.astype(adt), trans.astype(adt), nbins, nz
+            counts, sums = shell_bin_rfft(
+                (total.astype(adt), longi.astype(adt), trans.astype(adt)), nbins, nx, nz
             )
             return jnp.where(counts > 0, sums / jnp.maximum(counts, 1), jnp.nan)
 
@@ -404,9 +386,7 @@ def kinetic_energy_spectra(
     shape = tuple(int(s) for s in dens.shape)
     nbins = max(shape) // 2 - 1  # len(bins)-1 with bins = arange(max//2)-0.5
 
-    from fava_tpu.ops import pallas_kernels as pk
-
-    fn = _build_spectra_fn(shape, mesh, nbins, pk.path_key())
+    fn = _build_spectra_fn(shape, mesh, nbins)
     means = np.asarray(fn(dens, tuple(vels)), dtype=np.float64)
 
     k, integral_factor = _shell_integral_factor(nbins, ndim)
@@ -420,8 +400,8 @@ def kinetic_energy_spectra(
 
 
 @lru_cache(maxsize=32)
-def _build_scalar_spectrum_fn(shape: Tuple[int, ...], mesh_key, nbins: int, path_key=None):
-    """Jitted scalar power-spectrum core (cached per shape/mesh/backend)."""
+def _build_scalar_spectrum_fn(shape: Tuple[int, ...], mesh_key, nbins: int):
+    """Jitted scalar power-spectrum core (cached per shape/mesh)."""
     mesh = mesh_key
     ndim = len(shape)
     ntot = int(np.prod(shape))
@@ -429,21 +409,16 @@ def _build_scalar_spectrum_fn(shape: Tuple[int, ...], mesh_key, nbins: int, path
 
     def core(field):
         if mesh is not None and ndim == 3:
-            # Sharded inputs must NOT hit the single-chip Pallas path
-            # (it cannot consume mesh-sharded arrays): pod-sharded
-            # pencil FFT + GSPMD-partitioned scatter binning, like
-            # _build_spectra_fn's generic branch.
+            # Pod-sharded pencil FFT + GSPMD-partitioned scatter
+            # binning, like _build_spectra_fn's generic branch.
             fw = pfft.pfft3(
                 field.astype(jnp.promote_types(field.dtype, jnp.float32)), mesh=mesh
             ) / ntot
         elif ndim == 3:
-            from fava_tpu.ops.dft import rfftn_fast
-            from fava_tpu.ops.pallas_kernels import shell_bin_sums_rfft_scalar
-
-            fw = rfftn_fast(field) / ntot
+            fw = jnp.fft.rfftn(field) / ntot
             p = (jnp.abs(fw) ** 2).astype(adt)
-            counts, sums = shell_bin_sums_rfft_scalar(p, nbins, shape[-1])
-            return jnp.where(counts > 0, sums / jnp.maximum(counts, 1), jnp.nan)
+            counts, sums = shell_bin_rfft((p,), nbins, shape[0], shape[-1])
+            return jnp.where(counts > 0, sums[0] / jnp.maximum(counts, 1), jnp.nan)
         else:
             fw = jnp.fft.fftn(field) / ntot
 
@@ -480,9 +455,7 @@ def scalar_spectrum(
     shape = tuple(int(s) for s in field.shape)
     nbins = max(shape) // 2 - 1
 
-    from fava_tpu.ops import pallas_kernels as pk
-
-    fn = _build_scalar_spectrum_fn(shape, mesh, nbins, pk.path_key())
+    fn = _build_scalar_spectrum_fn(shape, mesh, nbins)
     mean = np.asarray(fn(field), dtype=np.float64)
 
     k, integral_factor = _shell_integral_factor(nbins, ndim)

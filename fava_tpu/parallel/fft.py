@@ -3,11 +3,11 @@
 The reference computes the full ``np.fft.fftn`` redundantly on every MPI
 rank against a node-shared array (reference: fava/mesh/FLASH/FlashUniform.py:268)
 — it never landed its planned ``mpi4py-fft`` decomposition. Here the 3D
-FFT is genuinely decomposed over ICI:
+FFT is genuinely decomposed over the device interconnect:
 
   input slab-sharded along x:  (nx/d, ny, nz)  per device
     1. batched local FFT over the two resident axes (y, z)
-    2. ``all_to_all`` transpose x<->y over the mesh axis (rides ICI)
+    2. ``all_to_all`` transpose x<->y over the mesh axis
     3. local FFT over the now-resident x axis
   output slab-sharded along y: (nx, ny/d, nz)  per device
 

@@ -3,10 +3,11 @@
 The reference parallelizes with an MPI singleton over node-local
 shared-memory windows (reference: fava/util/_mpi.py:17-80): every rank
 sees one copy of each big array and collectives reduce small profiles.
-The TPU-native equivalent is single-controller JAX: big arrays are
-``jax.Array``s resident in HBM, sharded over a ``jax.sharding.Mesh``;
-"shared windows" become a single global array, and ``Allreduce`` becomes
-``psum`` over ICI inside jitted/shard_mapped code.
+The JAX equivalent is single-controller JAX: big arrays are
+``jax.Array``s resident in device memory, sharded over a
+``jax.sharding.Mesh``; "shared windows" become a single global array,
+and ``Allreduce`` becomes ``psum`` over the device interconnect inside
+jitted/shard_mapped code.
 
 This module owns the global mesh used by the analysis kernels. With one
 device (or no mesh configured) everything runs unsharded; with a mesh,
@@ -31,6 +32,26 @@ _MESH: Optional[Mesh] = None
 
 def device_count() -> int:
     return len(jax.devices())
+
+
+def device_memory_bytes() -> float:
+    """Bytes one device can hold for arrays.
+
+    An accelerator reports it as ``memory_stats()["bytes_limit"]``; one
+    that does not is an error, since every memory-sized choice (in-core
+    vs streamed, series batch size) would otherwise rest on a guess.
+    The CPU backend has no ``memory_stats``: its arrays live in host
+    RAM, so the budget is the host's physical memory.
+    """
+    import os
+
+    dev = jax.devices()[0]
+    if dev.platform == "cpu":
+        return float(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"))
+    stats = dev.memory_stats() or {}
+    if "bytes_limit" not in stats:
+        raise RuntimeError(f"{dev.device_kind}: memory_stats() reports no bytes_limit")
+    return float(stats["bytes_limit"])
 
 
 def make_device_mesh(
@@ -142,7 +163,7 @@ def ingest_volume_sharding(mesh: Optional[Mesh] = None, ndim: int = 3):
     so each volume crosses the host link exactly once — on a snap x
     space pod, sharding only over "space" would replicate the transfer
     per snap row. The pod series step then redistributes on-device to
-    ``P("snap", "space")`` batches (ICI, not host link).
+    ``P("snap", "space")`` batches (device interconnect, not host link).
     """
     mesh = mesh if mesh is not None else _MESH
     if mesh is None:

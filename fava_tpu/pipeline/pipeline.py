@@ -1,6 +1,6 @@
 """Pipeline orchestration with JSON checkpoint/resume.
 
-TPU-native rebuild of the reference pipeline
+JAX rebuild of the reference pipeline
 (reference: fava/__main__.py:22-279): four stages over a FLASH snapshot
 series — per-plt Reynolds stress + flame-window fit, window-trajectory
 smoothing, moving-window extraction via from_amr, and uniform-data
@@ -17,7 +17,6 @@ import logging
 from pathlib import Path
 from typing import Any, Dict, Optional
 
-import h5py
 import numpy as np
 
 from fava_tpu.models import FLASH
@@ -84,9 +83,9 @@ def snap_window_axis0(
 
     A fit-centered window puts BOTH bounds exactly on the BCID rounding
     tie (``int32(0.5 + k + 0.5)``, reference _flash.py:967) where 1-ulp
-    float noise independently decides each end — measured on chip: one
-    snapshot of three extracted 511x512x512. On TPU a wobbling width
-    forces a fresh multi-minute XLA compile of every stage-4 program, so
+    float noise independently decides each end (one snapshot of three
+    extracted 511x512x512). A wobbling width forces a fresh XLA compile
+    of every stage-4 program, so
     snap the left bound to its nearest cell edge and place both bounds a
     quarter cell INSIDE the target edges: ``int32(0.5 + k +- 0.25)``
     rounds unconditionally, every snapshot extracts exactly ``ncells``,
@@ -229,6 +228,8 @@ class Pipeline:
     # ------------------------------------------------------------------
     # Stage 1: per-plt Reynolds stress + flame window
     def reynolds_stress(self, index: int) -> None:
+        import h5py
+
         file_type = "plt"
         self.model.load(file_index=index, file_type=file_type)
         fn = self.output_dir / self.model.convert_filename_type(file_type, "anl").name
@@ -298,6 +299,8 @@ class Pipeline:
     # ------------------------------------------------------------------
     # Stage 2: smooth the window trajectory across the series
     def smooth_window_trajectory(self) -> None:
+        import h5py
+
         xs, ts = [], []
         for p in sorted(self.model.plt_files["by index"].keys()):
             self.model.load(file_index=p, file_type="plt")
@@ -368,7 +371,7 @@ class Pipeline:
                 subdomain_coords[a] = [max(dom[a, 1] - width, dom[a, 0]), dom[a, 1]]
         # Snap x to an exact fine-cell count — see snap_window_axis0:
         # the fit-centered bounds land on the BCID rounding tie, and a
-        # 511-vs-512 width wobble recompiles every stage-4 TPU program.
+        # 511-vs-512 width wobble recompiles every stage-4 program.
         subdomain_coords = snap_window_axis0(
             subdomain_coords,
             dom,

@@ -1,34 +1,33 @@
-"""Persistent XLA compilation cache helper.
+"""Persistent XLA compilation cache: one rule for every entry point.
 
-The TPU backend can take minutes to compile the big fused analysis
-programs (e.g. the 512^3 flagship step), but cache hits load in well
-under a second. Call :func:`enable_compilation_cache` once per process
-(the pipeline CLI and bench do this automatically).
+The big fused analysis programs (e.g. the 512^3 flagship step) take
+seconds to compile; cache hits load in well under a second. Call
+:func:`enable_compilation_cache` once per process (``chip_smoke.py``,
+``bench.py`` and the pipeline CLI do).
 """
 
 from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Optional
 
-_DEFAULT = Path.home() / ".cache" / "fava_tpu" / "xla"
+# <checkout>/.jax_cache: a fixed path (the cache key includes it), which
+# .gitignore lists.
+CHECKOUT_CACHE = Path(__file__).resolve().parents[2] / ".jax_cache"
 
 
-def enable_compilation_cache(path: Optional[str | Path] = None) -> Path:
-    """Point XLA's persistent cache at ``path``.
+def enable_compilation_cache() -> Path:
+    """Return the persistent cache directory in use, enabling it if needed.
 
-    Resolution order: explicit ``path`` argument, then the
-    ``FAVA_TPU_CACHE_DIR`` environment variable (so driver scripts can
-    hand one warm cache to ``python -m fava_tpu`` subprocesses), then
-    ``~/.cache/fava_tpu/xla``.
+    If ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and
+    this function sets nothing. Otherwise the cache is
+    ``<checkout>/.jax_cache``.
     """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return Path(env)
     import jax
 
-    if path is None:
-        path = os.environ.get("FAVA_TPU_CACHE_DIR") or None
-    cache_dir = Path(path) if path is not None else _DEFAULT
-    cache_dir.mkdir(parents=True, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", str(cache_dir))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    return cache_dir
+    CHECKOUT_CACHE.mkdir(parents=True, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", str(CHECKOUT_CACHE))
+    return CHECKOUT_CACHE

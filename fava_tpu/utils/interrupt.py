@@ -1,6 +1,6 @@
 """SIGINT/SIGTERM interrupt handling with an external checkpoint callback.
 
-TPU-native counterpart of the reference's MPI-aware handler
+JAX counterpart of the reference's MPI-aware handler
 (reference: fava/util/_mpi.py:83-136): on interrupt the pipeline's
 checkpoint callback is invoked so a resumable JSON checkpoint lands on
 disk before the process dies; original handlers are restored afterward.

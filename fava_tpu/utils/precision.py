@@ -1,9 +1,10 @@
 """Floating-point policy.
 
-The reference computes everything in host float64. On TPU, float64 is
-software-emulated and slow, so the device compute dtype defaults to
-float32 there, while CPU test runs (with ``jax_enable_x64``) use float64
-and validate bit-level agreement against the NumPy oracles. Profile /
+The reference computes everything in host float64. On an accelerator
+the device compute dtype defaults to float32 — it halves memory and
+bandwidth against float64 and runs at a far higher rate — while CPU
+test runs (with ``jax_enable_x64``) use float64 and validate bit-level
+agreement against the NumPy oracles. Profile /
 spectrum accumulators are small, so they always use the widest available
 float to keep summation error negligible.
 """

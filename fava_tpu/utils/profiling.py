@@ -1,6 +1,6 @@
 """Profiler integration.
 
-TPU counterpart of the reference's print-based timer instrumentation
+JAX counterpart of the reference's print-based timer instrumentation
 (SURVEY §5 tracing): ``device_trace`` captures a ``jax.profiler`` trace
 (viewable in TensorBoard / Perfetto) around any analysis region, and
 ``annotate`` adds named spans so device timelines attribute kernel time

@@ -1,13 +1,15 @@
-"""On-TPU accuracy artifact (VERDICT round-2 item 5).
+"""On-device accuracy record for the flagship step and every analysis.
 
-Runs the f32 flagship step on the real chip at 128^3 and 256^3 and
+Runs the f32 flagship step on the accelerator at 128^3 and 256^3 and
 compares every output against a float64 NumPy oracle implementing the
 reference algorithms (full-grid FFT binning + centered two-pass
-profiles). Records max scale-normalized errors in VALIDATION.json —
-the concrete number behind "bit-for-bit where required, else
-documented tolerance" (BASELINE.md north star).
+profiles), then each public analysis against its oracle. Prints the
+max scale-normalized errors as one JSON object (and writes it to
+``--out PATH`` when given) — the concrete number behind "bit-for-bit
+where required, else documented tolerance" (BASELINE.md north star).
+Sections that need HDF5 files are skipped when h5py is not installed.
 
-    python scripts/tpu_validate.py [n ...]
+    python scripts/validate.py [--out PATH] [n ...]
 """
 
 from __future__ import annotations
@@ -18,9 +20,17 @@ import time
 from pathlib import Path
 
 import numpy as np
+import scipy.fft
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+
+try:
+    import h5py  # noqa: F401
+
+    HAVE_H5PY = True
+except ImportError:
+    HAVE_H5PY = False
 
 
 def oracle_step(dens: np.ndarray, vels) -> dict:
@@ -43,7 +53,7 @@ def oracle_step(dens: np.ndarray, vels) -> dict:
     total = np.zeros(shape)
     longi = np.zeros(shape, dtype=np.complex128)
     for k, v in zip((kx, ky, kz), vels):
-        f = np.fft.fftn(sd * v, norm="forward")
+        f = scipy.fft.fftn(sd * v, norm="forward", workers=-1)  # = np.fft, all cores
         total += 0.5 * np.abs(f) ** 2
         longi += k * f
     longi_p = np.abs(longi / np.maximum(k_abs, 1e-99)) ** 2
@@ -83,85 +93,69 @@ def oracle_step(dens: np.ndarray, vels) -> dict:
 
 
 def main() -> None:
+    import argparse
+
     import jax
 
     from fava_tpu import utils as futils
-    from fava_tpu.flagship import make_example_fields
+    from fava_tpu.flagship import jitted_analysis_step, make_example_fields
 
-    futils.enable_compilation_cache(str(ROOT / ".jax_cache"))
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("sizes", nargs="*", type=int, default=[128, 256])
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args()
+
+    futils.enable_compilation_cache()
     futils.timing.VERBOSE = False
 
-    sizes = [int(a) for a in sys.argv[1:]] or [128, 256]
     report = {
-        "platform": jax.devices()[0].platform,
+        "device": {
+            "platform": jax.devices()[0].platform,
+            "kind": jax.devices()[0].device_kind,
+            "count": len(jax.devices()),
+        },
         "compute_dtype": "float32",
         "oracle": "float64 NumPy, reference algorithms (full-grid FFT binning, centered profiles)",
         "error_metric": "max |got - oracle| / max |oracle| per output",
-        "dft_precision_default": "high (sizes); sizes_dft_highest records the validation-grade mode",
+        "sizes": {},
     }
-
-    import jax as _jax
-
-    from fava_tpu.flagship import uniform_analysis_step
-    from fava_tpu.ops import dft
-
-    oracle_cache: dict = {}  # size -> f64 oracle (identical across dft modes)
-    for mode in ("high", "highest"):
-        dft.PRECISION = dft._PRECISIONS[mode]
-        # fresh jit per mode: the precision knob is read at trace time
-        step = _jax.jit(lambda d, vx, vy, vz: uniform_analysis_step(d, vx, vy, vz, mesh=None))
-        sizes_key = "sizes" if mode == "high" else "sizes_dft_highest"
-        report[sizes_key] = {}
-        for n in sizes:
-            print(f"== {n}^3 dft={mode} ==", flush=True)
-            fields = make_example_fields(n=n)
-            t0 = time.perf_counter()
-            out = step(*fields)
-            host = {k: np.asarray(v, dtype=np.float64) for k, v in out.items()}
-            wall = time.perf_counter() - t0
-
-            if n not in oracle_cache:
-                dens = np.asarray(fields[0], dtype=np.float64)
-                vels = [np.asarray(v, dtype=np.float64) for v in fields[1:]]
-                oracle_cache[n] = oracle_step(dens, vels)
-                del dens, vels
-            ref = oracle_cache[n]
-
-            # Scale floors: the synthetic fields have integer trig
-            # frequencies, so some oracle outputs are analytically ZERO
-            # (e.g. favre_mean: row means of products of mismatched
-            # harmonics) — dividing f32 noise by f64 noise is meaningless.
-            # Those outputs are scaled by their physical fluctuation scale
-            # instead (the Favre RMS / velocity magnitude).
-            floors = {
-                "favre_mean": np.abs(ref["favre_rms"]).max(),
-                "mean_dens": np.abs(ref["mean_dens"]).max(),
-            }
-            errs = {}
-            for key, exp in ref.items():
-                got = host[key]
-                scale = max(np.abs(exp).max(), floors.get(key, 0.0))
-                err = float(np.abs(got - exp).max() / scale) if scale > 0 else float(np.abs(got).max())
-                errs[key] = err
-                print(f"  {key}: {err:.3e}", flush=True)
-            report[sizes_key][str(n)] = {"wall_first_call_s": wall, "max_scaled_error": errs}
+    step = jitted_analysis_step(None)
+    for n in args.sizes:
+        print(f"== {n}^3 ==", flush=True)
+        fields = make_example_fields(n=n)
+        t0 = time.perf_counter()
+        host = {k: np.asarray(v, dtype=np.float64) for k, v in step(*fields).items()}
+        wall = time.perf_counter() - t0
+        dens = np.asarray(fields[0], dtype=np.float64)
+        vels = [np.asarray(v, dtype=np.float64) for v in fields[1:]]
+        errs = flagship_errors(host, oracle_step(dens, vels))
+        for key, err in errs.items():
+            print(f"  {key}: {err:.3e}", flush=True)
+        report["sizes"][str(n)] = {"wall_first_call_s": wall, "max_scaled_error": errs}
 
     report["analyses"] = validate_analyses()
-
-    # Preserve entries owned by other validators (tpu_particles_bench
-    # merges the particle-family entries in): a full refresh must not
-    # silently drop them.
-    val_path = ROOT / "VALIDATION.json"
-    if val_path.is_file():
-        prior = json.loads(val_path.read_text()).get("analyses", {})
-        for key, entry in prior.items():
-            report["analyses"].setdefault(key, entry)
-
-    val_path.write_text(json.dumps(report, indent=2))
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(report, indent=2))
     print(json.dumps(report), flush=True)
 
 
-def _scaled_err(got, exp, floor=0.0):
+def flagship_errors(got: dict, ref: dict) -> dict:
+    """Max scale-normalized error of each flagship output vs the oracle.
+
+    The synthetic trig fields have integer frequencies, so some oracle
+    outputs are analytically ZERO (e.g. favre_mean: row means of
+    products of mismatched harmonics) — dividing f32 noise by f64 noise
+    is meaningless. Those outputs are scaled by their physical
+    fluctuation scale instead (the Favre RMS / the mean density)."""
+    floors = {
+        "favre_mean": np.abs(ref["favre_rms"]).max(),
+        "mean_dens": np.abs(ref["mean_dens"]).max(),
+    }
+    return {key: scaled_err(got[key], exp, floors.get(key, 0.0)) for key, exp in ref.items()}
+
+
+def scaled_err(got, exp, floor=0.0):
     got = np.asarray(got, dtype=np.float64)
     exp = np.asarray(exp, dtype=np.float64)
     scale = max(np.abs(exp).max(), floor)
@@ -169,8 +163,8 @@ def _scaled_err(got, exp, floor=0.0):
 
 
 def validate_structure_functions() -> dict:
-    """On-chip f32 structure functions vs an f64 oracle fed the SAME
-    on-chip PRNG draws (isolates pipeline rounding from sampling noise)."""
+    """On-device f32 structure functions vs an f64 oracle fed the SAME
+    device PRNG draws (isolates pipeline rounding from sampling noise)."""
     import jax
     import jax.numpy as jnp
 
@@ -192,7 +186,7 @@ def validate_structure_functions() -> dict:
         seed=seed,
     )
 
-    # Reproduce the exact on-chip uniforms (same streams/shape/dtype;
+    # Reproduce the exact device uniforms (same streams/shape/dtype;
     # utils/prng.py stream layout: order o -> (o-1)*3 + {0,1,2}).
     from fava_tpu.utils import prng
 
@@ -236,18 +230,18 @@ def validate_structure_functions() -> dict:
         trans_comp = np.sqrt(((dv - long_comp[..., None] * rhat) ** 2).sum(axis=-1))
         ref_l = (long_comp**o).sum(axis=-1) / num_points
         ref_t = (trans_comp**o).sum(axis=-1) / num_points
-        errs["longitudinal"] = max(errs["longitudinal"], _scaled_err(out["longitudinal"][str(o)], ref_l))
-        errs["transverse"] = max(errs["transverse"], _scaled_err(out["transverse"][str(o)], ref_t))
+        errs["longitudinal"] = max(errs["longitudinal"], scaled_err(out["longitudinal"][str(o)], ref_l))
+        errs["transverse"] = max(errs["transverse"], scaled_err(out["transverse"][str(o)], ref_t))
     return {
         "config": {"n": n, "num_seps": num_seps, "num_points": num_points, "orders": "1-10"},
-        "oracle": "f64 NumPy on the SAME on-chip PRNG draws",
+        "oracle": "f64 NumPy on the SAME device PRNG draws",
         "max_scaled_error": errs,
     }
 
 
 def validate_analyses() -> dict:
-    """On-chip error record for every non-flagship public analysis
-    (VERDICT round-2 item 4: CPU-f64 tests do not imply TPU correctness)."""
+    """On-device error record for every non-flagship public analysis
+    (CPU-f64 tests do not imply f32 device correctness)."""
     import tempfile
 
     import jax.numpy as jnp
@@ -268,11 +262,11 @@ def validate_analyses() -> dict:
     out["fractal_dimension"] = {
         "config": {"n": 128, "contour": 1.3},
         "max_scaled_error": {
-            "average_fractal_dimension": _scaled_err(
+            "average_fractal_dimension": scaled_err(
                 got["average fractal dimension"], ref["average fractal dimension"]
             ),
-            "slope": _scaled_err(got["slope"], ref["slope"]),
-            "curve_counts": _scaled_err(got["curve"], ref["curve"]),
+            "slope": scaled_err(got["slope"], ref["slope"]),
+            "curve_counts": scaled_err(got["curve"], ref["curve"]),
         },
     }
 
@@ -300,10 +294,10 @@ def validate_analyses() -> dict:
     out["pdf"] = {
         "config": {"n": 128, "nbins1d": 64, "nbins2d": 32},
         "max_scaled_error": {
-            "pdf1d_counts": _scaled_err(got1["counts"], ref_counts),
-            "pdf1d_density": _scaled_err(got1["pdf"], ref_pdf),
-            "pdf2d_counts": _scaled_err(got2["counts"], ref2_counts),
-            "pdf2d_auto_counts": _scaled_err(gota["counts"], refa_counts),
+            "pdf1d_counts": scaled_err(got1["counts"], ref_counts),
+            "pdf1d_density": scaled_err(got1["pdf"], ref_pdf),
+            "pdf2d_counts": scaled_err(got2["counts"], ref2_counts),
+            "pdf2d_auto_counts": scaled_err(gota["counts"], refa_counts),
         },
         "auto_range_all_samples_kept": bool(
             gota["counts"].sum() == d64.size
@@ -311,10 +305,8 @@ def validate_analyses() -> dict:
     }
 
     # --- WEIGHTED histograms: double-word (hi, lo) accumulation --------
-    # The r5 exactness work (utils/twofloat.blocked_sum_dd + the Pallas
-    # pdf2d lo plane) is TPU-only on the kernel path: interpret-mode
-    # correctness does not imply Mosaic compiles/marshals the second
-    # output correctly, so the chip must pin these numbers itself.
+    # The double-word (hi, lo) accumulation (utils/twofloat) must hold
+    # in f32 on the device, where the CPU-f64 tests cannot see it.
     print("== analyses: weighted histograms (double-word) ==", flush=True)
     w = jnp.exp(jnp.sin(7.0 * velx))  # rough positive weights, no jax.random
     w64 = np.exp(np.sin(7.0 * vx64))
@@ -332,7 +324,7 @@ def validate_analyses() -> dict:
     wy, _ = np.histogram(d64, bins=64, range=vr, weights=w64 * vx64)
     with np.errstate(invalid="ignore"):
         mean_ref = wy / wsum
-    # Concentrated stall regime ON CHIP: 512^3 constant-weight samples
+    # Concentrated stall regime on the device: 512^3 constant-weight samples
     # all in ONE bin -> true sum 4.0e7 ~ 2.4x the f32 2^24*w absorption
     # stall (a plain f32 accumulator returns ~5.0e6/4.0e7 = 8x low).
     big = make_example_fields(n=512)[0]
@@ -346,10 +338,10 @@ def validate_analyses() -> dict:
     out["weighted_histograms"] = {
         "config": {"n": 128, "stall_check_n": 512, "weights": "exp(sin(7 velx)), const 0.3"},
         "max_scaled_error": {
-            "pdf1d_weighted": _scaled_err(got1w["counts"], refw),
-            "pdf2d_weighted_kernel": _scaled_err(got2w["counts"], ref2w),
-            "binned_statistic_weight_sums": _scaled_err(got_bsw["weight_sums"], wsum),
-            "binned_statistic_weighted_mean": _scaled_err(
+            "pdf1d_weighted": scaled_err(got1w["counts"], refw),
+            "pdf2d_weighted_kernel": scaled_err(got2w["counts"], ref2w),
+            "binned_statistic_weight_sums": scaled_err(got_bsw["weight_sums"], wsum),
+            "binned_statistic_weighted_mean": scaled_err(
                 np.nan_to_num(got_bsw["mean"]), np.nan_to_num(mean_ref)
             ),
         },
@@ -361,55 +353,58 @@ def validate_analyses() -> dict:
         },
     }
 
-    # --- AMR mass + regrid round-trip on-chip --------------------------
-    print("== analyses: AMR mass_sum + regrid ==", flush=True)
-    from fava_tpu.io import synthetic
-    from fava_tpu.mesh import FLASH as FlashAMR
+    # --- AMR mass + regrid round-trip on the device -------------------
+    if not HAVE_H5PY:
+        print("h5py is not installed: section skipped (needs HDF5 files)", flush=True)
+    else:
+        print("== analyses: AMR mass_sum + regrid ==", flush=True)
+        from fava_tpu.io import synthetic
+        from fava_tpu.mesh import FLASH as FlashAMR
 
-    with tempfile.TemporaryDirectory() as td:
-        path = Path(td) / "rt_hdf5_plt_cnt_0001"
-        synthetic.make_amr_file(path, ncells=(8, 8, 8), nblks=(2, 2, 2), refine={0: 2, 3: 3})
-        mesh = FlashAMR(path)
-        mesh.load()
-        mesh.load_data(["dens", "velx"])
+        with tempfile.TemporaryDirectory() as td:
+            path = Path(td) / "rt_hdf5_plt_cnt_0001"
+            synthetic.make_amr_file(path, ncells=(8, 8, 8), nblks=(2, 2, 2), refine={0: 2, 3: 3})
+            mesh = FlashAMR(path)
+            mesh.load()
+            mesh.load_data(["dens", "velx"])
 
-        got_mass = mesh.mass_sum()["total"]
-        leaf = np.asarray(mesh.get_blocklist("LEAF"))
-        cv = np.asarray(mesh.get_cell_volumes("LEAF"), dtype=np.float64)
-        dh = np.asarray(mesh.host_data("dens"), dtype=np.float64)[leaf]
-        ref_mass = float((dh.sum(axis=(1, 2, 3)) * cv).sum())
-        mass_err = _scaled_err(got_mass, ref_mass)
+            got_mass = mesh.mass_sum()["total"]
+            leaf = np.asarray(mesh.get_blocklist("LEAF"))
+            cv = np.asarray(mesh.get_cell_volumes("LEAF"), dtype=np.float64)
+            dh = np.asarray(mesh.host_data("dens"), dtype=np.float64)[leaf]
+            ref_mass = float((dh.sum(axis=(1, 2, 3)) * cv).sum())
+            mass_err = scaled_err(got_mass, ref_mass)
 
-        data = {k: np.asarray(mesh.host_data(k), dtype=np.float64) for k in ("dens", "velx")}
-        expected, _total = from_amr_oracle(
-            data,
-            block_bounds=np.asarray(mesh.block_bounds),
-            node_type=np.asarray(mesh.node_type),
-            refine_level=np.asarray(mesh.refine_level).astype(int),
-            ncells=mesh.nCellsVec,
-            nblks=mesh.nBlksVec,
-            ndim=3,
-            fields=["dens", "velx"],
-        )
-        # projection BEFORE from_amr (which collapses the mesh in
-        # place): exact regrid-then-sum twin of the per-level path.
-        got_proj = mesh.projection(field="dens", axis=0)
-        dxp = (mesh.xmax - mesh.xmin) / expected["dens"].shape[0]
-        proj_err = _scaled_err(got_proj["map"], expected["dens"].sum(axis=0) * dxp)
-        mesh.from_amr(fields=["dens", "velx"], save_file=False)
-        regrid_err = max(
-            _scaled_err(np.asarray(mesh._data[k]), expected[k]) for k in ("dens", "velx")
-        )
-    out["mass_sum"] = {"max_scaled_error": mass_err}
-    out["regrid_from_amr"] = {
-        "config": {"ncells": 8, "nblks": 2, "levels": "1-3"},
-        "max_scaled_error": regrid_err,
-    }
-    out["projection"] = {
-        "config": {"ncells": 8, "nblks": 2, "levels": "1-3", "axis": 0},
-        "oracle": "regrid-then-sum (exact for piecewise-constant data)",
-        "max_scaled_error": proj_err,
-    }
+            data = {k: np.asarray(mesh.host_data(k), dtype=np.float64) for k in ("dens", "velx")}
+            expected, _total = from_amr_oracle(
+                data,
+                block_bounds=np.asarray(mesh.block_bounds),
+                node_type=np.asarray(mesh.node_type),
+                refine_level=np.asarray(mesh.refine_level).astype(int),
+                ncells=mesh.nCellsVec,
+                nblks=mesh.nBlksVec,
+                ndim=3,
+                fields=["dens", "velx"],
+            )
+            # projection BEFORE from_amr (which collapses the mesh in
+            # place): exact regrid-then-sum twin of the per-level path.
+            got_proj = mesh.projection(field="dens", axis=0)
+            dxp = (mesh.xmax - mesh.xmin) / expected["dens"].shape[0]
+            proj_err = scaled_err(got_proj["map"], expected["dens"].sum(axis=0) * dxp)
+            mesh.from_amr(fields=["dens", "velx"], save_file=False)
+            regrid_err = max(
+                scaled_err(np.asarray(mesh._data[k]), expected[k]) for k in ("dens", "velx")
+            )
+        out["mass_sum"] = {"max_scaled_error": mass_err}
+        out["regrid_from_amr"] = {
+            "config": {"ncells": 8, "nblks": 2, "levels": "1-3"},
+            "max_scaled_error": regrid_err,
+        }
+        out["projection"] = {
+            "config": {"ncells": 8, "nblks": 2, "levels": "1-3", "axis": 0},
+            "oracle": "regrid-then-sum (exact for piecewise-constant data)",
+            "max_scaled_error": proj_err,
+        }
 
     # --- scalar power spectrum -----------------------------------------
     print("== analyses: scalar spectrum ==", flush=True)
@@ -437,37 +432,40 @@ def validate_analyses() -> dict:
     ref_sp = (sums / np.maximum(counts, 1)) * kk**2 * (4.0 * np.pi)
     out["scalar_spectrum"] = {
         "config": {"n": 128, "field": "dens"},
-        "max_scaled_error": _scaled_err(got_sp[1:], ref_sp[1:]),
+        "max_scaled_error": scaled_err(got_sp[1:], ref_sp[1:]),
     }
 
     # --- eulerian autocorrelation (device point sampling) ---------------
-    # A static AMR series must correlate to exactly 1 at every time:
-    # the recorded error isolates the on-chip sample_fields gather path.
-    # (Lagrangian/cross correlations are host-side NumPy over particle
-    # tables — no device math to validate.)
-    print("== analyses: eulerian autocorrelation ==", flush=True)
-    import fava_tpu
+    if not HAVE_H5PY:
+        print("h5py is not installed: section skipped (needs HDF5 files)", flush=True)
+    else:
+        # A static AMR series must correlate to exactly 1 at every time:
+        # the recorded error isolates the device sample_fields gather path.
+        # (Lagrangian/cross correlations are host-side NumPy over particle
+        # tables — no device math to validate.)
+        print("== analyses: eulerian autocorrelation ==", flush=True)
+        import fava_tpu
 
-    with tempfile.TemporaryDirectory() as td:
-        for i, t in enumerate([0.0, 0.1, 0.2], start=1):
-            synthetic.make_amr_file(
-                Path(td) / f"rt_hdf5_plt_cnt_{i:04d}",
-                ncells=(8, 8, 8),
-                nblks=(2, 2, 2),
-                refine={0: 2},
-                time=t,
-            )
-        model = fava_tpu.FLASH(Path(td))
-        _times, res = model.eulerian_autocorrelation(nsamples=64, fields=["dens"], seed=2)
-    out["eulerian_autocorrelation"] = {
-        "config": {"series": "3 static snapshots", "nsamples": 64},
-        "oracle": "static field => rho == 1 exactly",
-        "max_scaled_error": float(np.abs(np.asarray(res["dens"]) - 1.0).max()),
-        "note": "lagrangian/cross correlations are host-side NumPy (no device math)",
-    }
+        with tempfile.TemporaryDirectory() as td:
+            for i, t in enumerate([0.0, 0.1, 0.2], start=1):
+                synthetic.make_amr_file(
+                    Path(td) / f"rt_hdf5_plt_cnt_{i:04d}",
+                    ncells=(8, 8, 8),
+                    nblks=(2, 2, 2),
+                    refine={0: 2},
+                    time=t,
+                )
+            model = fava_tpu.FLASH(Path(td))
+            _times, res = model.eulerian_autocorrelation(nsamples=64, fields=["dens"], seed=2)
+        out["eulerian_autocorrelation"] = {
+            "config": {"series": "3 static snapshots", "nsamples": 64},
+            "oracle": "static field => rho == 1 exactly",
+            "max_scaled_error": float(np.abs(np.asarray(res["dens"]) - 1.0).max()),
+            "note": "lagrangian/cross correlations are host-side NumPy (no device math)",
+        }
 
-    # --- spectral velocity diagnostics (MXU inverse DFT path) ----------
-    # Exercises irfftn_mxu on chip: the Helmholtz/vorticity fields are
+    # --- spectral velocity diagnostics (inverse FFT path) --------------
+    # Exercises the inverse FFT on the device: the Helmholtz/vorticity fields are
     # the only analyses with an INVERSE transform in the hot path.
     print("== analyses: velocity diagnostics ==", flush=True)
     from fava_tpu.ops import velocity as vel_ops
@@ -481,18 +479,18 @@ def validate_analyses() -> dict:
     sol_ref, comp_ref = vel_oracle.helmholtz_oracle(vels64)
     helm_err = max(
         max(
-            _scaled_err(np.asarray(hd["compressive"][n]), comp_ref[i])
+            scaled_err(np.asarray(hd["compressive"][n]), comp_ref[i])
             for i, n in enumerate(("velx", "vely", "velz"))
         ),
         max(
-            _scaled_err(np.asarray(hd["solenoidal"][n]), sol_ref[i])
+            scaled_err(np.asarray(hd["solenoidal"][n]), sol_ref[i])
             for i, n in enumerate(("velx", "vely", "velz"))
         ),
     )
     vort = vel_ops.vorticity(*vels_dev)
     vort_ref = vel_oracle.vorticity_oracle(vels64)
-    vort_err = max(_scaled_err(np.asarray(g), r) for g, r in zip(vort, vort_ref))
-    dil_err = _scaled_err(
+    vort_err = max(scaled_err(np.asarray(g), r) for g, r in zip(vort, vort_ref))
+    dil_err = scaled_err(
         np.asarray(vel_ops.dilatation(*vels_dev)), vel_oracle.dilatation_oracle(vels64)
     )
     ens = vel_ops.enstrophy_spectrum(*vels_dev)["power"]
@@ -531,14 +529,14 @@ def validate_analyses() -> dict:
             "helmholtz_fields": helm_err,
             "vorticity_fields": vort_err,
             "dilatation_field": dil_err,
-            "enstrophy_spectrum": _scaled_err(ens[1:], ens_ref[1:]),
-            "helicity_spectrum": _scaled_err(hel[fin], hel_ref[fin]),
+            "enstrophy_spectrum": scaled_err(ens[1:], ens_ref[1:]),
+            "helicity_spectrum": scaled_err(hel[fin], hel_ref[fin]),
         },
     }
 
     # --- kinetic-energy transfer spectrum ------------------------------
     # Adds the product-transform path (9 forward + optional 3 inverse
-    # MXU DFTs) on chip. Error is measured on a field with ACTIVE
+    # FFTs) on the device. Error is measured on a field with ACTIVE
     # triads: Taylor-Green/ABC/the trig mix transfer nothing
     # instantaneously, so scaling an error by their max|T| (~roundoff)
     # just compares f32 noise against f64 noise. A random solenoidal
@@ -554,7 +552,7 @@ def validate_analyses() -> dict:
     tr_bl_ref = vel_oracle.transfer_spectrum_oracle(list(bl))
     # Full-spectrum solenoidal field under dealias=True: exercises the
     # 2/3-rule mask AND the extended shell range (dealiased_nbins) on
-    # chip — conservation over the BINNED record must still hold. (The
+    # the device — conservation over the BINNED record must still hold. (The
     # trig-mix field is useless here too: near-zero true transfer.)
     fs = _band_limited_solenoidal(n=nn, kmax=4.0 * nn, seed=11)
     tr_full = vel_ops.transfer_spectrum(
@@ -567,8 +565,8 @@ def validate_analyses() -> dict:
             "dealiased_conservation_field": "full-spectrum random solenoidal, dealias=True",
         },
         "max_scaled_error": {
-            "transfer": _scaled_err(tr_bl["transfer"], tr_bl_ref["transfer"]),
-            "flux": _scaled_err(tr_bl["flux"], tr_bl_ref["flux"]),
+            "transfer": scaled_err(tr_bl["transfer"], tr_bl_ref["transfer"]),
+            "flux": scaled_err(tr_bl["flux"], tr_bl_ref["flux"]),
         },
         "conservation_residual": float(
             abs(tr_bl["transfer"].sum()) / max(np.abs(tr_bl["transfer"]).max(), 1e-30)
@@ -579,8 +577,8 @@ def validate_analyses() -> dict:
     }
 
     # --- filtered (coarse-grained) SGS kinetic-energy flux -------------
-    # Exercises the scan-over-cutoffs path (28 inverse MXU DFTs per
-    # scale) on chip; the sharp-filter Galerkin identity against the
+    # Exercises the scan-over-cutoffs path (28 inverse FFTs per
+    # scale) on the device; the sharp-filter Galerkin identity against the
     # transfer-spectrum flux cross-checks two independent device paths.
     print("== analyses: filtered ke flux ==", flush=True)
     from fava_tpu.ops import coarse_grain as cg_ops
@@ -610,12 +608,12 @@ def validate_analyses() -> dict:
             "field": "random solenoidal |k| <= 8 velocities, trig dens/pres",
         },
         "max_scaled_error": {
-            "pi_mean": _scaled_err(got_cg["pi_mean"], ref_cg["pi_mean"]),
-            "pi_rms": _scaled_err(got_cg["pi_rms"], ref_cg["pi_rms"]),
-            "baropycnal_mean": _scaled_err(
+            "pi_mean": scaled_err(got_cg["pi_mean"], ref_cg["pi_mean"]),
+            "pi_rms": scaled_err(got_cg["pi_rms"], ref_cg["pi_rms"]),
+            "baropycnal_mean": scaled_err(
                 got_cg["baropycnal_mean"], ref_cg["baropycnal_mean"]
             ),
-            "baropycnal_rms": _scaled_err(
+            "baropycnal_rms": scaled_err(
                 got_cg["baropycnal_rms"], ref_cg["baropycnal_rms"]
             ),
         },
@@ -625,7 +623,7 @@ def validate_analyses() -> dict:
     # --- decomposed (sol/comp) KE spectra ------------------------------
     # Exercises the in-k-space Helmholtz projection + three shell
     # binnings in one jit; the shell budget total == sol + comp must
-    # close at f32 roundoff ON CHIP (it is exact by construction).
+    # close at f32 roundoff on the device (it is exact by construction).
     print("== analyses: decomposed + anisotropic spectra ==", flush=True)
     got_dec = vel_ops.decomposed_ke_spectra(*vels_dev, dens=dens_dev)
     ref_dec = vel_oracle.decomposed_ke_spectra_oracle(vels64, dens64)
@@ -640,7 +638,7 @@ def validate_analyses() -> dict:
         "max_scaled_error": {
             # the oracle's _shell_mean already applies the 4*pi*k^2
             # shell compensation — compare records directly
-            name: _scaled_err(got_dec[name][1:], ref_dec[name][1:])
+            name: scaled_err(got_dec[name][1:], ref_dec[name][1:])
             for name in ("total", "solenoidal", "compressive")
         },
         "shell_budget_residual": budget_resid,
@@ -655,7 +653,7 @@ def validate_analyses() -> dict:
     out["anisotropic_ke_spectra"] = {
         "config": {"n": 128, "axis": 0, "field": "trig mix"},
         "max_scaled_error": {
-            name: _scaled_err(got_an[name], ref_an[name])
+            name: scaled_err(got_an[name], ref_an[name])
             for name in ("par_total", "par_axial", "perp_total", "perp_transverse")
         },
         "parseval_residual": {
@@ -665,7 +663,7 @@ def validate_analyses() -> dict:
     }
 
     # --- flame surface density -----------------------------------------
-    # Two on-chip checks: (1) the coarea integral vs an f64 np.gradient
+    # Two device checks: (1) the coarea integral vs an f64 np.gradient
     # oracle on the trig dens field (general-field accuracy), (2) the
     # closed-form secant wrinkling factor of a tilted linear front
     # (exactness of the device gradient/reduction chain).
@@ -685,9 +683,9 @@ def validate_analyses() -> dict:
     out["flame_surface"] = {
         "config": {"n": 128, "field": "trig dens + tilted linear front"},
         "max_scaled_error": {
-            "area": _scaled_err(got_fs["area"], mag64.sum() * d**3),
-            "sigma_profile": _scaled_err(got_fs["sigma"], mag64.mean(axis=(1, 2))),
-            "max_gradient": _scaled_err(got_fs["max_gradient"], mag64.max()),
+            "area": scaled_err(got_fs["area"], mag64.sum() * d**3),
+            "sigma_profile": scaled_err(got_fs["sigma"], mag64.mean(axis=(1, 2))),
+            "max_gradient": scaled_err(got_fs["max_gradient"], mag64.max()),
         },
         "tilted_front_wrinkling_residual": float(
             abs(got_tilt["wrinkling"] - np.hypot(a_t, b_t)) / np.hypot(a_t, b_t)
@@ -709,12 +707,12 @@ def validate_analyses() -> dict:
     out["turbulence_summary"] = {
         "config": {"n": 128, "field": "trig mix + dens/pres/gamc"},
         "max_scaled_error": {
-            name: _scaled_err(got_ts[name], ref_ts[name]) for name in sorted(ref_ts)
+            name: scaled_err(got_ts[name], ref_ts[name]) for name in sorted(ref_ts)
         },
     }
 
     # --- density PDF (lognormality diagnostics) -------------------------
-    # Exact weighted moments + histogram on chip vs plain f64 NumPy.
+    # Exact weighted moments + histogram on the device vs plain f64 NumPy.
     print("== analyses: density pdf ==", flush=True)
     from fava_tpu.ops.volume import density_pdf
 
@@ -729,18 +727,18 @@ def validate_analyses() -> dict:
     out["density_pdf"] = {
         "config": {"n": 128, "field": "trig dens", "mach": 1.5},
         "max_scaled_error": {
-            "mean_s": _scaled_err(got_dp["mean_s"], mu64, floor=abs(sig64)),
-            "sigma_s": _scaled_err(got_dp["sigma_s"], sig64),
-            "skewness": _scaled_err(got_dp["skewness"], ((s64 - mu64) ** 3).mean() / sig64**3),
-            "b_parameter": _scaled_err(
+            "mean_s": scaled_err(got_dp["mean_s"], mu64, floor=abs(sig64)),
+            "sigma_s": scaled_err(got_dp["sigma_s"], sig64),
+            "skewness": scaled_err(got_dp["skewness"], ((s64 - mu64) ** 3).mean() / sig64**3),
+            "b_parameter": scaled_err(
                 got_dp["b_parameter"], np.sqrt(np.expm1(sig64**2)) / 1.5
             ),
-            "counts": _scaled_err(got_dp["counts"], ref_counts_dp),
+            "counts": scaled_err(got_dp["counts"], ref_counts_dp),
         },
     }
 
     # --- spatial two-point correlations ----------------------------------
-    # Wiener-Khinchin on chip (forward + inverse MXU transforms) vs the
+    # Wiener-Khinchin on the device (forward + inverse FFTs) vs the
     # f64 np.fft twin; the velocity lines additionally exercise the
     # symmetrized power-marginal path (no inverse volume transforms).
     print("== analyses: two-point correlations ==", flush=True)
@@ -754,9 +752,9 @@ def validate_analyses() -> dict:
     out["two_point_correlation"] = {
         "config": {"n": 128, "field": "trig dens"},
         "max_scaled_error": {
-            "variance": _scaled_err(got_tp["variance"], var64),
-            "R_x": _scaled_err(got_tp["R_x"], corr64[:half, 0, 0] / var64),
-            "R_z": _scaled_err(got_tp["R_z"], corr64[0, 0, :half] / var64),
+            "variance": scaled_err(got_tp["variance"], var64),
+            "R_x": scaled_err(got_tp["R_x"], corr64[:half, 0, 0] / var64),
+            "R_z": scaled_err(got_tp["R_z"], corr64[0, 0, :half] / var64),
         },
     }
     got_vc = tp_ops.velocity_correlations(*vels_dev)
@@ -765,7 +763,7 @@ def validate_analyses() -> dict:
         vm = vels64[a] - vels64[a].mean()
         c = np.fft.irfftn(np.abs(np.fft.rfftn(vm)) ** 2, s=vm.shape) / vm.size
         line = [c[:half, 0, 0], c[0, :half, 0], c[0, 0, :half]][a]
-        vc_errs[f"f_{ax}"] = _scaled_err(got_vc[f"f_{ax}"], line / line[0])
+        vc_errs[f"f_{ax}"] = scaled_err(got_vc[f"f_{ax}"], line / line[0])
     out["velocity_correlations"] = {
         "config": {"n": 128, "field": "trig mix"},
         "max_scaled_error": vc_errs,
@@ -792,7 +790,7 @@ def validate_analyses() -> dict:
         "config": {"n": 128, "field": "trig mix", "boundary": "periodic"},
         "scale_floors": sorted(vg_floors),
         "max_scaled_error": {
-            name: _scaled_err(got_vg[name], ref_vg[name], floor=vg_floors.get(name, 0.0))
+            name: scaled_err(got_vg[name], ref_vg[name], floor=vg_floors.get(name, 0.0))
             for name in (
                 "gradient_moment2",
                 "gradient_moment3",
@@ -846,8 +844,8 @@ def validate_analyses() -> dict:
     out["gradient_invariant_pdfs"] = {
         "config": {"n": 128, "nbins": 64, "qr_range": 6.0},
         "max_scaled_error": {
-            "q_w": _scaled_err(qw_got, w2_64.mean() / 4.0),
-            "counts": _scaled_err(got_qr["counts"], ref_qr_counts),
+            "q_w": scaled_err(qw_got, w2_64.mean() / 4.0),
+            "counts": scaled_err(got_qr["counts"], ref_qr_counts),
         },
     }
 
@@ -869,9 +867,9 @@ def validate_analyses() -> dict:
     out["binned_statistic"] = {
         "config": {"n": 128, "nbins": 64},
         "max_scaled_error": {
-            "counts": _scaled_err(got_bs["counts"], bs_ref["count"]),
-            "mean": _scaled_err(got_bs["mean"][occ], bs_ref["mean"][occ]),
-            "std": _scaled_err(got_bs["std"][occ], bs_ref["std"][occ]),
+            "counts": scaled_err(got_bs["counts"], bs_ref["count"]),
+            "mean": scaled_err(got_bs["mean"][occ], bs_ref["mean"][occ]),
+            "std": scaled_err(got_bs["std"][occ], bs_ref["std"][occ]),
         },
         "all_samples_kept": bool(got_bs["counts"].sum() == d64.size),
         "occupied_bins": int(occ.sum()),
@@ -954,16 +952,16 @@ def validate_analyses() -> dict:
         "config": {"n": 128, "field": "trig mix", **inc_cfg},
         "note": "f32 device geometry flips a few nearest-cell gathers/bin edges vs the f64 oracle",
         "max_scaled_error": {
-            f"{comp}_{k}": _scaled_err(got_inc[comp][k], ref_inc[comp][k])
+            f"{comp}_{k}": scaled_err(got_inc[comp][k], ref_inc[comp][k])
             for comp in ("longitudinal", "transverse")
             for k in ("counts", "std", "skewness", "flatness")
         },
     }
 
-    # --- out-of-core twins on chip ---------------------------------------
+    # --- out-of-core twins on the device ---------------------------------
     # The streamed summary/correlations use donated-buffer
-    # dynamic_update_slice writes and chunked matmuls whose TPU
-    # behavior the CPU-f64 equality tests cannot certify (CLAUDE.md).
+    # dynamic_update_slice writes and chunked matmuls whose f32 device
+    # behavior the CPU-f64 equality tests cannot certify.
     print("== analyses: streamed (out-of-core) twins ==", flush=True)
     from fava_tpu.ops import twopoint as tp_ops
     from fava_tpu.ops.outofcore import (
@@ -996,14 +994,14 @@ def validate_analyses() -> dict:
     ref_sc = tp_ops.velocity_correlations(*vels_dev)
     out["streamed_twins"] = {
         "config": {"n": 128, "slab_rows": 32, "chunk_rows": 32},
-        "oracle": "the IN-CORE f32 paths on the same chip (streaming must not change the numbers)",
+        "oracle": "the IN-CORE f32 paths on the same device (streaming must not change the numbers)",
         "max_scaled_error": {
             "turbulence_summary": max(
-                _scaled_err(got_ss[k], ref_ss[k], floor=abs(ref_ss["sigma_s"]))
+                scaled_err(got_ss[k], ref_ss[k], floor=abs(ref_ss["sigma_s"]))
                 for k in ref_ss
             ),
             "velocity_correlations": max(
-                _scaled_err(got_sc[f"f_{ax}"], ref_sc[f"f_{ax}"]) for ax in "xyz"
+                scaled_err(got_sc[f"f_{ax}"], ref_sc[f"f_{ax}"]) for ax in "xyz"
             ),
         },
     }
@@ -1045,59 +1043,62 @@ def validate_analyses() -> dict:
     s2 = np.bincount(bidxp[maskp], weights=dlp[maskp] ** 2, minlength=8) / np.maximum(cnt, 1)
     out["particle_structure_functions"] = {
         "config": {"nparticles": npart, "num_pairs": 65536, "nbins": 8, "orders": 4},
-        "oracle": "f64 NumPy on the SAME on-chip pair draws",
+        "oracle": "f64 NumPy on the SAME device pair draws",
         "max_scaled_error": {
-            "counts": _scaled_err(got_ps["counts"], cnt),
-            "longitudinal_2": _scaled_err(got_ps["longitudinal"]["2"], s2),
+            "counts": scaled_err(got_ps["counts"], cnt),
+            "longitudinal_2": scaled_err(got_ps["longitudinal"]["2"], s2),
         },
     }
 
     # --- Eulerian autocorrelation (translating single mode) -------------
-    print("== analyses: eulerian autocorrelation ==", flush=True)
-    import tempfile
+    if not HAVE_H5PY:
+        print("h5py is not installed: section skipped (needs HDF5 files)", flush=True)
+    else:
+        print("== analyses: eulerian autocorrelation ==", flush=True)
+        import tempfile
 
-    import fava_tpu
-    from fava_tpu.analysis.auto_correlations import _sample_grid_points
-    from fava_tpu.io import synthetic
+        import fava_tpu
+        from fava_tpu.analysis.auto_correlations import _sample_grid_points
+        from fava_tpu.io import synthetic
 
-    n_e, U, kk = 32, 0.3, 2.0 * np.pi
-    times_e = [0.0, 0.5, 1.0, 1.5]
-    xc = (np.arange(n_e) + 0.5) / n_e
-    X = np.broadcast_to(xc[:, None, None], (n_e, n_e, n_e))
-    tdir = Path(tempfile.mkdtemp(prefix="fava_euler_"))
-    for i, t in enumerate(times_e, start=1):
-        synthetic.make_uniform_file(
-            tdir / f"rt_hdf5_uniform_{i:04d}",
-            ncells=(n_e,) * 3,
-            field_data={"dens": 2.0 + np.cos(kk * (X - U * t))},
-            time=t,
+        n_e, U, kk = 32, 0.3, 2.0 * np.pi
+        times_e = [0.0, 0.5, 1.0, 1.5]
+        xc = (np.arange(n_e) + 0.5) / n_e
+        X = np.broadcast_to(xc[:, None, None], (n_e, n_e, n_e))
+        tdir = Path(tempfile.mkdtemp(prefix="fava_euler_"))
+        for i, t in enumerate(times_e, start=1):
+            synthetic.make_uniform_file(
+                tdir / f"rt_hdf5_uniform_{i:04d}",
+                ncells=(n_e,) * 3,
+                field_data={"dens": 2.0 + np.cos(kk * (X - U * t))},
+                time=t,
+            )
+        m_e = fava_tpu.FLASH(tdir)
+        _, res_e = m_e.eulerian_autocorrelation(
+            nsamples=500, fields=["dens"], seed=3, file_type="uni"
         )
-    m_e = fava_tpu.FLASH(tdir)
-    _, res_e = m_e.eulerian_autocorrelation(
-        nsamples=500, fields=["dens"], seed=3, file_type="uni"
-    )
-    m2_e = fava_tpu.FLASH(tdir)
-    m2_e.load(file_index=0, fields=["dens"], file_type="uni")
-    pts = _sample_grid_points(m2_e.mesh, 500, np.random.default_rng(3))
-    ixs = np.clip(np.floor(pts[:, 0] * n_e).astype(int), 0, n_e - 1)
+        m2_e = fava_tpu.FLASH(tdir)
+        m2_e.load(file_index=0, fields=["dens"], file_type="uni")
+        pts = _sample_grid_points(m2_e.mesh, 500, np.random.default_rng(3))
+        ixs = np.clip(np.floor(pts[:, 0] * n_e).astype(int), 0, n_e - 1)
 
-    def mode_at(t):
-        return 2.0 + np.cos(kk * (xc[ixs] - U * t))
+        def mode_at(t):
+            return 2.0 + np.cos(kk * (xc[ixs] - U * t))
 
-    f0 = mode_at(0.0)
-    exp_rho = np.array(
-        [
-            np.sum(f0 * mode_at(t)) / (np.linalg.norm(f0) * np.linalg.norm(mode_at(t)))
-            for t in times_e
-        ]
-    )
-    out["eulerian_autocorrelation"] = {
-        "config": {"n": n_e, "nsamples": 500, "field": "dens = 2 + cos(2pi(x - 0.3 t))"},
-        "oracle": "analytic translation evaluated at the SAME sampled cells "
-        "(nonzero decorrelation closed form, not the static identity)",
-        "expected_rho": [round(float(v), 6) for v in exp_rho],
-        "max_abs_error": float(np.max(np.abs(res_e["dens"] - exp_rho))),
-    }
+        f0 = mode_at(0.0)
+        exp_rho = np.array(
+            [
+                np.sum(f0 * mode_at(t)) / (np.linalg.norm(f0) * np.linalg.norm(mode_at(t)))
+                for t in times_e
+            ]
+        )
+        out["eulerian_autocorrelation"] = {
+            "config": {"n": n_e, "nsamples": 500, "field": "dens = 2 + cos(2pi(x - 0.3 t))"},
+            "oracle": "analytic translation evaluated at the SAME sampled cells "
+            "(nonzero decorrelation closed form, not the static identity)",
+            "expected_rho": [round(float(v), 6) for v in exp_rho],
+            "max_abs_error": float(np.max(np.abs(res_e["dens"] - exp_rho))),
+        }
 
     # --- structure functions (same-draw oracle) ------------------------
     print("== analyses: structure functions ==", flush=True)

@@ -4,12 +4,12 @@ Literal per-cell mapping implementation of the reference from_amr
 algorithm (fava/mesh/FLASH/_flash.py:955-1377): integer BCID boxes from
 truncated float math, leaf selection (with refine-level truncation and
 subdomain intersection), and injection prolongation by 2^(level-diff)
-cell replication via an explicit {dest: (leaf, i, j, k)} mapping.
+cell replication: each leaf writes source cell i // 2^(level-diff) to
+fine cell i, leaf by leaf in block order.
 """
 
 from __future__ import annotations
 
-import itertools
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -82,29 +82,24 @@ def from_amr_oracle(
         total_cells = np.ones(MESH_MDIM, dtype=np.int64)
         total_cells[:ndim] = fine_blks[:ndim] * ncells[:ndim]
 
-    mapping = {}
-    for leaf in leaf_ids:
-        off = np.array([bcids[leaf, a, 0] if a < ndim else 0 for a in range(MESH_MDIM)])
-        scale = int(2 ** (lmax - refine_level[leaf]))
-        for i, j, kk in itertools.product(range(ncells[0]), range(ncells[1]), range(ncells[2])):
-            for ii, jj, kb in itertools.product(
-                range(i * scale, (i + 1) * scale),
-                range(j * scale, (j + 1) * scale),
-                range(kk * scale, (kk + 1) * scale),
-            ):
-                ind = off + np.array([ii, jj, kb])
-                if subdomain_flag:
-                    inside = all(sub_bcids[n, 0] <= ind[n] < sub_bcids[n, 1] for n in range(MESH_MDIM))
-                    if not inside:
-                        continue
-                    ind = ind - sub_bcids[:, 0]
-                mapping[tuple(ind)] = (leaf, i, j, kk)
-
+    # The {dest: (leaf, i, j, k)} mapping, one leaf at a time: along
+    # each axis, fine index off + t (t < ncells * scale) reads source
+    # cell t // scale; the subdomain keeps the fine indices inside its
+    # box. Later leaves overwrite earlier ones, like a dict insert.
     fields = list(fields) if fields is not None else list(data.keys())
-    out = {}
-    for key in fields:
-        vol = np.zeros(tuple(total_cells))
-        for dest, src in mapping.items():
-            vol[dest] = data[key][src]
-        out[key] = vol
+    out = {key: np.zeros(tuple(total_cells)) for key in fields}
+    for leaf in leaf_ids:
+        scale = int(2 ** (lmax - refine_level[leaf]))
+        dest, src = [], []
+        for n in range(MESH_MDIM):
+            off = bcids[leaf, n, 0] if n < ndim else 0
+            t = np.arange(int(ncells[n]) * scale)
+            ind = off + t
+            if subdomain_flag:
+                inside = (sub_bcids[n, 0] <= ind) & (ind < sub_bcids[n, 1])
+                t, ind = t[inside], ind[inside] - sub_bcids[n, 0]
+            dest.append(ind)
+            src.append(t // scale)
+        for key in fields:
+            out[key][np.ix_(*dest)] = data[key][leaf][np.ix_(*src)]
     return out, total_cells

@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Dict, Sequence
 
 import numpy as np
+import scipy.fft
 from scipy.stats import binned_statistic
 
 
@@ -38,7 +39,8 @@ def ke_spectra_oracle(
     w = np.sqrt(dens)
     ffts = []
     for v in vels:
-        f = np.fft.fftshift(np.fft.fftn(w * v, norm="forward"))
+        # scipy.fft equals np.fft in f64; workers=-1 uses every core.
+        f = np.fft.fftshift(scipy.fft.fftn(w * v, norm="forward", workers=-1))
         ffts.append(f)
     ffts = np.array(ffts)
 
@@ -68,3 +70,29 @@ def ke_spectra_oracle(
         if key != "k":
             spectral[key] = spectral[key] * factor
     return spectral
+
+
+def signed_wavenumbers(n: int) -> np.ndarray:
+    """Unshifted integer wavenumbers of an n-point FFT axis (f64)."""
+    k = np.arange(n)
+    return np.where(k <= (n - 1) // 2, k, k - n).astype(np.float64)
+
+
+def shell_sums_oracle(powers: Sequence[np.ndarray], nbins: int):
+    """(counts, sums) of full-grid power volumes binned into integer
+    |k| shells: shell floor(|k| + 0.5), right-inclusive last edge
+    nbins - 0.5 (scipy.stats.binned_statistic with edges
+    arange(nbins + 1) - 0.5, as the reference bins)."""
+    shape = powers[0].shape
+    ks = np.meshgrid(*(signed_wavenumbers(n) for n in shape), indexing="ij")
+    k_abs = np.sqrt(sum(k * k for k in ks)).ravel()
+    idx = np.clip(np.floor(k_abs + 0.5).astype(np.int64), 0, nbins - 1)
+    inside = k_abs <= nbins - 0.5
+    counts = np.bincount(idx, weights=inside.astype(np.float64), minlength=nbins)[:nbins]
+    sums = np.stack(
+        [
+            np.bincount(idx, weights=np.where(inside, p.ravel(), 0.0), minlength=nbins)[:nbins]
+            for p in powers
+        ]
+    )
+    return counts, sums

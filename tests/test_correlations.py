@@ -133,8 +133,7 @@ def test_cross_correlation_custom_tag_field(tmp_path):
 def test_eulerian_autocorrelation_translating_mode(tmp_path):
     """Single-mode advected field dens(x,t) = 2 + cos(2pi(x - U t)):
     the decorrelation curve is pinned by the known translation — a
-    NONZERO closed form, not the static rho = 1 identity (VERDICT r3
-    weak #6). The exact oracle evaluates the mode at the same sampled
+    NONZERO closed form, not the static rho = 1 identity. The exact oracle evaluates the mode at the same sampled
     cells; the continuum closed form (4 + cos(2pi U t)/2)/4.5 bounds
     the Monte-Carlo sampling error."""
     n, U, k = 16, 0.3, 2.0 * np.pi

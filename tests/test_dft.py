@@ -1,120 +1,84 @@
-"""Dense MXU DFT vs numpy FFT (float64 exact on CPU)."""
+"""Transforms: the jnp.fft wrappers of the in-core paths and the dense
+DFT matrices of the streamed path, vs numpy FFTs (float64 on CPU)."""
 
+import importlib
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from fava_tpu.ops import dft
+from fava_tpu.ops.velocity import _irfft3, _rfft3
+
+SHAPES = [(8, 8, 8), (16, 12, 8), (8, 8, 9), (4, 16, 6)]
 
 
-@pytest.mark.parametrize("shape", [(8, 8, 8), (16, 12, 8), (8, 8, 9), (4, 16, 6)])
-def test_rfftn_mxu_matches_numpy(shape):
-    rng = np.random.default_rng(3)
-    x = rng.standard_normal(shape)
-    got = np.asarray(dft.rfftn_mxu(jnp.asarray(x)))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_rfft3_matches_numpy(shape):
+    x = np.random.default_rng(3).standard_normal(shape)
+    got = np.asarray(_rfft3(jnp.asarray(x)))
     ref = np.fft.rfftn(x)
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-10)
 
 
-def test_rfftn_fast_dispatches_off_tpu():
-    # On the CPU test backend the jnp.fft path must be taken (exact).
-    x = jnp.asarray(np.random.default_rng(0).standard_normal((8, 8, 8)))
-    np.testing.assert_allclose(
-        np.asarray(dft.rfftn_fast(x)), np.fft.rfftn(np.asarray(x)), rtol=1e-12, atol=1e-12
-    )
-
-
-def test_axis_helpers_match_numpy():
-    rng = np.random.default_rng(7)
-    x = rng.standard_normal((6, 10, 8))
-    np.testing.assert_allclose(
-        np.asarray(dft.rfft_trailing(jnp.asarray(x))),
-        np.fft.rfft(x, axis=-1),
-        rtol=1e-10,
-        atol=1e-10,
-    )
-    xc = rng.standard_normal((6, 10, 8)) + 1j * rng.standard_normal((6, 10, 8))
-    for axis in (0, 1, 2):
-        np.testing.assert_allclose(
-            np.asarray(dft.fft_axis(jnp.asarray(xc), axis)),
-            np.fft.fft(xc, axis=axis),
-            rtol=1e-10,
-            atol=1e-10,
-        )
-
-
-@pytest.mark.parametrize("shape", [(8, 8, 8), (16, 12, 8), (8, 8, 9), (4, 16, 6)])
-def test_irfftn_mxu_roundtrip_and_numpy(shape):
-    rng = np.random.default_rng(11)
-    x = rng.standard_normal(shape)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_irfft3_roundtrip_and_numpy(shape):
+    """Unnormalized forward -> inverse round-trips (numpy semantics:
+    the inverse carries 1/N), odd trailing extents included."""
+    x = np.random.default_rng(11).standard_normal(shape)
     spec = np.fft.rfftn(x)
-    got = np.asarray(dft.irfftn_mxu(jnp.asarray(spec), nz=shape[-1]))
+    got = np.asarray(_irfft3(jnp.asarray(spec), shape[-1]))
     ref = np.fft.irfftn(spec, s=shape, axes=(0, 1, 2))
     np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-10)
     np.testing.assert_allclose(got, x, rtol=1e-10, atol=1e-10)
 
 
-def test_irfft_trailing_ignores_self_conjugate_imag():
-    # np.fft.irfft drops the imaginary parts of the k=0 and Nyquist
-    # modes; the dense matrices must do the same.
-    rng = np.random.default_rng(13)
-    spec = rng.standard_normal((4, 5, 5)) + 1j * rng.standard_normal((4, 5, 5))
-    got = np.asarray(dft.irfft_trailing(jnp.asarray(spec), n=8))
-    np.testing.assert_allclose(got, np.fft.irfft(spec, n=8, axis=-1), rtol=1e-10, atol=1e-10)
+def test_rdft_mats_match_rfft():
+    """The real-to-halfcomplex matrices reproduce np.fft.rfft on z."""
+    x = np.random.default_rng(7).standard_normal((6, 10, 9))
+    cr, ci = dft._rdft_mats(9, "float64")
+    re = np.einsum("xyz,zk->xyk", x, cr)
+    im = np.einsum("xyz,zk->xyk", x, ci)
+    np.testing.assert_allclose(re + 1j * im, np.fft.rfft(x, axis=-1), rtol=1e-10, atol=1e-10)
 
 
-def test_irfft_trailing_odd_output():
-    rng = np.random.default_rng(17)
-    x = rng.standard_normal((4, 6, 9))
-    spec = np.fft.rfftn(x)
-    got = np.asarray(dft.irfft_trailing(jnp.asarray(np.fft.rfft(x, axis=-1)), n=9))
-    np.testing.assert_allclose(got, x, rtol=1e-10, atol=1e-10)
-    with pytest.raises(ValueError):
-        dft.irfft_trailing(jnp.asarray(spec), n=12)
-
-
-def test_ifft_axis_matches_numpy():
+@pytest.mark.parametrize("spec,axis", [("ab,xbz->xaz", 1), ("kx,xyz->kyz", 0)])
+def test_planar_complex_matmul_matches_fft(spec, axis):
+    """The streamed path's planar complex DFT (both einsum spellings it
+    uses) equals np.fft.fft along that axis."""
     rng = np.random.default_rng(19)
-    xc = rng.standard_normal((6, 10, 8)) + 1j * rng.standard_normal((6, 10, 8))
-    for axis in (0, 1, 2):
-        np.testing.assert_allclose(
-            np.asarray(dft.ifft_axis(jnp.asarray(xc), axis)),
-            np.fft.ifft(xc, axis=axis),
-            rtol=1e-10,
-            atol=1e-10,
-        )
-
-
-def test_irfftn_fast_dispatches_off_tpu():
-    x = np.random.default_rng(23).standard_normal((8, 8, 8))
-    spec = np.fft.rfftn(x)
-    np.testing.assert_allclose(
-        np.asarray(dft.irfftn_fast(jnp.asarray(spec))), x, rtol=1e-12, atol=1e-12
+    xc = rng.standard_normal((6, 10, 5)) + 1j * rng.standard_normal((6, 10, 5))
+    d = dft._dft_mat(xc.shape[axis], "float64")
+    re, im = dft.planar_complex_matmul(
+        spec, jnp.asarray(d.real), jnp.asarray(d.imag), jnp.asarray(xc.real), jnp.asarray(xc.imag)
     )
+    got = np.asarray(re) + 1j * np.asarray(im)
+    np.testing.assert_allclose(got, np.fft.fft(xc, axis=axis), rtol=1e-10, atol=1e-10)
 
 
-def test_use_mxu_fft_gates():
-    assert not dft.use_mxu_fft((8, 8))  # 2D: no
-    assert not dft.use_mxu_fft((2048, 8, 8))  # beyond dense regime
-    # 3D within range: depends on platform only (CPU here -> False).
-    assert not dft.use_mxu_fft((64, 64, 64))
-
-
-
-def test_fused_zy_rfft_matches_numpy():
-    """The fused z+y Pallas kernel (interpret mode) + x einsum must
-    reproduce np.fft.rfftn."""
-    from fava_tpu.experiments import pallas_dft
-    from fava_tpu.ops import pallas_kernels as pk
-
-    pk.FORCE_INTERPRET = True
+@pytest.mark.parametrize(
+    "env,expected",
+    [
+        (None, jax.lax.Precision.HIGHEST),
+        ("high", jax.lax.Precision.HIGH),
+        ("bogus", ValueError),
+    ],
+)
+def test_dft_precision_setting(monkeypatch, env, expected):
+    """FAVA_DFT_PRECISION picks the einsum precision at import; the
+    default is HIGHEST (true f32 on the GPU, not TF32)."""
+    if env is None:
+        monkeypatch.delenv("FAVA_DFT_PRECISION", raising=False)
+    else:
+        monkeypatch.setenv("FAVA_DFT_PRECISION", env)
     try:
-        rng = np.random.default_rng(5)
-        v = rng.standard_normal((4, 128, 128))
-        assert pallas_dft.use_fused_zy(v.shape)
-        got = np.asarray(pallas_dft.rfftn_mxu_fused(jnp.asarray(v)))
-        ref = np.fft.rfftn(v)
-        np.testing.assert_allclose(got, ref, rtol=1e-9, atol=1e-9)
+        if expected is ValueError:
+            with pytest.raises(ValueError, match="FAVA_DFT_PRECISION"):
+                importlib.reload(dft)
+        else:
+            assert importlib.reload(dft).PRECISION == expected
     finally:
-        pk.FORCE_INTERPRET = False
+        monkeypatch.delenv("FAVA_DFT_PRECISION", raising=False)
+        importlib.reload(dft)

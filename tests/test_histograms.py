@@ -1,7 +1,7 @@
 """Histogram exactness: int32 counting paths (exact to 2^31 per bin),
 the scatter-free pdf2d matmul histogram, and the density_pdf hi/lo
-count packing. Regression targets: VERDICT r3 weak #3 (f32 per-bin sums
-silently lose integer exactness >= 2^24) and weak #4 (pdf2d scatter)."""
+count packing. Regression target: f32 per-bin sums silently lose
+integer exactness >= 2^24."""
 
 import jax
 import jax.numpy as jnp
@@ -12,7 +12,7 @@ from fava_tpu.ops import volume as vol
 
 
 class _f32_config:
-    """Temporarily run under the TPU-like f32 config (x64 off)."""
+    """Temporarily run under the accelerator's f32 config (x64 off)."""
 
     def __enter__(self):
         self._old = jax.config.jax_enable_x64
@@ -24,7 +24,7 @@ class _f32_config:
 
 def test_pdf1d_counts_exact_beyond_2p24_under_f32():
     """Concentrated distribution: > 2^24 samples in ONE bin, f32 config
-    (the TPU accumulation dtype). The int32 counting path must stay
+    (the accelerator accumulation dtype). The int32 counting path must stay
     integer-exact where an f32 per-bin sum rounds."""
     n_big = (1 << 24) + 4097
     with _f32_config():
@@ -113,69 +113,113 @@ def test_density_pdf_invalid_fixed_srange_raises():
 
 
 # ---------------------------------------------------------------------------
-# Fused Pallas pdf2d kernel (interpret mode; Mosaic path validated on TPU by
-# scripts/tpu_pdf2d_probe.py -> pdf2d_probe_512.json)
+# Joint histogram: chunk boundaries, bin semantics, weights, traced edges
 
 
-@pytest.fixture()
-def force_interpret_pdf2d():
-    from fava_tpu.ops import pallas_kernels as pk
-
-    pk.FORCE_INTERPRET = True
-    yield
-    pk.FORCE_INTERPRET = False
-
-
-def test_pallas_pdf2d_counts_exact(force_interpret_pdf2d):
-    from fava_tpu.ops import pallas_pdf2d as pp
-
+@pytest.mark.parametrize(
+    "case",
+    ["ragged_chunks", "closed_last_bin_and_out_of_range", "more_than_128_bins"],
+)
+def test_pdf2d_counts_exact_vs_histogram2d(case, monkeypatch):
+    """Unweighted joint counts are integer-exact against np.histogram2d on
+    the same f32 samples and f32-rounded edges."""
+    monkeypatch.setattr(vol, "_HIST2D_CHUNK", 1024)
+    vol._hist2d_fn.cache_clear()
     rng = np.random.default_rng(21)
-    n = 2 * pp._K + 517  # ragged tail exercises the inf padding
-    x = rng.normal(1.5, 0.4, n).astype(np.float32)
-    y = rng.normal(-0.2, 1.1, n).astype(np.float32)
-    xe = np.linspace(float(x.min()), float(x.max()), 101)
-    ye = np.linspace(float(y.min()), float(y.max()), 65)
-    got = np.asarray(pp.pdf2d_counts(jnp.asarray(x), jnp.asarray(y), xe, ye))
-    # oracle on the same f32-rounded edges (the kernel compares in f32)
-    bins = (xe.astype(np.float32).astype(np.float64), ye.astype(np.float32).astype(np.float64))
-    ref, _, _ = np.histogram2d(x, y, bins=bins)
-    assert got.sum() == n  # full range: every sample lands in a bin
-    np.testing.assert_array_equal(got, ref.astype(np.int64))
+    if case == "closed_last_bin_and_out_of_range":
+        x = np.array([1.0, 1.0, -0.1, 2.0, 0.5], dtype=np.float32)
+        y = np.array([1.0, 0.5, 0.5, 0.5, 1.5], dtype=np.float32)
+        nb, xr, yr = (4, 4), (0.0, 1.0), (0.0, 1.0)
+    else:
+        n = 2 * 1024 + 517  # ragged tail: inf padding lands in no bin
+        x = rng.normal(1.5, 0.4, n).astype(np.float32)
+        y = rng.normal(-0.2, 1.1, n).astype(np.float32)
+        nb = (100, 64) if case == "ragged_chunks" else (150, 130)
+        xr = (float(x.min()), float(x.max()))
+        yr = (float(y.min()), float(y.max()))
+    got = vol.pdf2d(jnp.asarray(x), jnp.asarray(y), nbins=nb, xrange=xr, yrange=yr, density=False)
+    vol._hist2d_fn.cache_clear()
+    adt = np.dtype(vol.accum_dtype())
+    bins = [np.linspace(*r, k + 1).astype(adt).astype(np.float64) for r, k in zip((xr, yr), nb)]
+    ref, _, _ = np.histogram2d(x.astype(np.float64), y.astype(np.float64), bins=bins)
+    np.testing.assert_array_equal(got["counts"], ref)
+    if case == "closed_last_bin_and_out_of_range":
+        assert got["counts"].sum() == 2  # top-edge pairs kept, out-of-range dropped
+    else:
+        assert got["counts"].sum() == x.size
 
 
-def test_pallas_pdf2d_last_bin_closed_and_oor(force_interpret_pdf2d):
-    from fava_tpu.ops import pallas_pdf2d as pp
-
-    xe = np.linspace(0.0, 1.0, 5)
-    ye = np.linspace(0.0, 1.0, 5)
-    x = np.array([1.0, 1.0, -0.1, 2.0, 0.5], dtype=np.float32)
-    y = np.array([1.0, 0.5, 0.5, 0.5, 1.5], dtype=np.float32)
-    got = np.asarray(pp.pdf2d_counts(jnp.asarray(x), jnp.asarray(y), xe, ye))
-    ref, _, _ = np.histogram2d(x, y, bins=(xe, ye))
-    np.testing.assert_array_equal(got, ref.astype(np.int64))
-    assert got.sum() == 2  # top-edge pairs kept, out-of-range dropped
-
-
-def test_pallas_pdf2d_weighted(force_interpret_pdf2d):
-    from fava_tpu.ops import pallas_pdf2d as pp
-
+def test_pdf2d_weighted_double_word(monkeypatch):
+    """Weighted sums across several chunks: double-word accumulation,
+    f64-combined on fetch."""
+    monkeypatch.setattr(vol, "_HIST2D_CHUNK", 1024)
+    vol._hist2d_fn.cache_clear()
     rng = np.random.default_rng(22)
-    n = pp._K + 301
-    x = rng.normal(1.5, 0.4, n).astype(np.float32)
-    y = rng.normal(-0.2, 1.1, n).astype(np.float32)
-    w = np.exp(rng.standard_normal(n)).astype(np.float32)
-    xe = np.linspace(float(x.min()), float(x.max()), 33)
-    ye = np.linspace(float(y.min()), float(y.max()), 101)
-    packed = np.asarray(
-        pp.pdf2d_counts(jnp.asarray(x), jnp.asarray(y), xe, ye, weights=jnp.asarray(w)),
-        dtype=np.float64,
+    n = 3 * 1024 + 301
+    x = rng.normal(1.5, 0.4, n)
+    y = rng.normal(-0.2, 1.1, n)
+    w = np.exp(rng.standard_normal(n))
+    xr, yr = (float(x.min()), float(x.max())), (float(y.min()), float(y.max()))
+    got = vol.pdf2d(
+        jnp.asarray(x), jnp.asarray(y), nbins=(33, 101), xrange=xr, yrange=yr,
+        weights=jnp.asarray(w), density=False,
     )
-    got = packed[0] + packed[1]  # double-word planes -> f64
-    bins = (xe.astype(np.float32).astype(np.float64), ye.astype(np.float32).astype(np.float64))
-    ref, _, _ = np.histogram2d(x, y, bins=bins, weights=w.astype(np.float64))
-    # f32 weight products via the Dekker split; double-word cross-step
-    # accumulation: only in-chunk MXU rounding remains
-    np.testing.assert_allclose(got, ref, rtol=2e-6, atol=1e-5)
+    vol._hist2d_fn.cache_clear()
+    ref, _, _ = np.histogram2d(x, y, bins=(33, 101), range=[xr, yr], weights=w)
+    np.testing.assert_allclose(got["counts"], ref, rtol=1e-12, atol=1e-12)
+
+
+def test_hist2d_traced_edges_match_host_edges():
+    """The in-trace edge form (fused Q-R and auto-range paths) bins
+    exactly like host-passed edges of the same values."""
+    rng = np.random.default_rng(23)
+    x = jnp.asarray(rng.normal(0.0, 1.0, 4097))
+    y = jnp.asarray(rng.normal(0.0, 2.0, 4097))
+    xe = jnp.asarray(np.linspace(-3.0, 3.0, 25))
+    ye = jnp.asarray(np.linspace(-6.0, 6.0, 17))
+    hist = vol._hist2d_fn(24, 16, counting=True)
+    host = np.asarray(hist(x, y, x, xe, ye))
+    traced = np.asarray(jax.jit(lambda a, b, c, d: hist(a, b, a, c, d))(x, y, xe, ye))
+    np.testing.assert_array_equal(traced, host)
+    ref, _, _ = np.histogram2d(np.asarray(x), np.asarray(y), bins=(np.asarray(xe), np.asarray(ye)))
+    np.testing.assert_array_equal(host, ref)
+
+
+def test_invariant_pdfs_counts_match_histogram2d():
+    """gradient_invariant_pdfs' fused counts equal np.histogram2d of the
+    same Q, R fields against the same Q_w-scaled edges, and Q_w
+    round-trips through the bitcast row."""
+    from fava_tpu.ops import gradients as gr
+
+    rng = np.random.default_rng(24)
+    vels = [jnp.asarray(rng.standard_normal((12, 12, 12))) for _ in range(3)]
+    got = gr.gradient_invariant_pdfs(*vels, nbins=(16, 12), qr_range=5.0)
+    fields = gr._invariant_fields_fn((12, 12, 12), gr._spacings((12, 12, 12), None), "periodic")
+    q, r, qw = fields(*vels)
+    qe, re = gr.invariant_pdf_edges(qw, 5.0, 16, 12)
+    ref, _, _ = np.histogram2d(
+        np.asarray(q).ravel(), np.asarray(r).ravel(), bins=(np.asarray(qe), np.asarray(re))
+    )
+    np.testing.assert_array_equal(got["counts"], ref)
+    np.testing.assert_allclose(got["q_w"], float(qw), rtol=1e-12)
+
+
+def test_pdf2d_auto_range_multi_chunk(monkeypatch):
+    """The fused auto-range path over several ragged chunks keeps every
+    sample and matches np.histogram2d against the reported edges."""
+    monkeypatch.setattr(vol, "_HIST2D_CHUNK", 1024)
+    vol._hist2d_fn.cache_clear()
+    vol._pdf2d_auto_fn.cache_clear()
+    rng = np.random.default_rng(32)
+    n = 1024 + 53
+    x = rng.normal(0.0, 1.0, n)
+    y = rng.normal(0.0, 2.0, n)
+    out = vol.pdf2d(jnp.asarray(x), jnp.asarray(y), nbins=(10, 10), density=False)
+    vol._hist2d_fn.cache_clear()
+    vol._pdf2d_auto_fn.cache_clear()
+    assert out["counts"].sum() == n
+    ref, _, _ = np.histogram2d(x, y, bins=[out["xedges"], out["yedges"]])
+    np.testing.assert_array_equal(out["counts"], ref)
 
 
 def test_pdf_empty_inputs():
@@ -188,47 +232,6 @@ def test_pdf_empty_inputs():
         vol.pdf1d(e, nbins=4)
     out1 = vol.pdf1d(e, nbins=4, vrange=(0.0, 1.0), density=False)
     np.testing.assert_array_equal(out1["counts"], np.zeros(4))
-
-
-def test_pallas_pdf2d_counts_traced_edges(force_interpret_pdf2d):
-    """The in-trace edge variant (fused Q-R path) matches the host-edge
-    kernel bit-for-bit when fed the same f32 edge values."""
-    from fava_tpu.ops import pallas_pdf2d as pp
-
-    rng = np.random.default_rng(23)
-    n = pp._K + 97
-    x = rng.normal(0.0, 1.0, n).astype(np.float32)
-    y = rng.normal(0.0, 2.0, n).astype(np.float32)
-    xe = np.linspace(-3.0, 3.0, 25).astype(np.float32)
-    ye = np.linspace(-6.0, 6.0, 17).astype(np.float32)
-    host = np.asarray(pp.pdf2d_counts(jnp.asarray(x), jnp.asarray(y), xe, ye))
-    traced = np.asarray(
-        jax.jit(
-            lambda xv, yv, xev, yev: pp.pdf2d_counts_traced(xv, yv, xev, yev)
-        )(jnp.asarray(x), jnp.asarray(y), jnp.asarray(xe), jnp.asarray(ye))
-    )
-    np.testing.assert_array_equal(traced, host)
-
-
-def test_invariant_pdfs_kernel_path_matches_xla(force_interpret_pdf2d):
-    """gradient_invariant_pdfs through the fused interpret-mode kernel
-    agrees with the XLA fallback (same traced edges, both exact), and
-    the packed Q_w round-trips through the bitcast row."""
-    from fava_tpu.ops import gradients as gr
-
-    rng = np.random.default_rng(24)
-    vels = [jnp.asarray(rng.standard_normal((12, 12, 12))) for _ in range(3)]
-    kern = gr.gradient_invariant_pdfs(*vels, nbins=(16, 12), qr_range=5.0)
-    from fava_tpu.ops import pallas_kernels as pk
-
-    pk.FORCE_INTERPRET = False
-    gr._invariant_pdf_fn.cache_clear()
-    xla = gr.gradient_invariant_pdfs(*vels, nbins=(16, 12), qr_range=5.0)
-    gr._invariant_pdf_fn.cache_clear()
-    np.testing.assert_allclose(kern["q_w"], xla["q_w"], rtol=1e-12)
-    # interpret kernel compares in f32; the f64 XLA edges can differ by
-    # an edge-ulp at bin boundaries — allow single-sample flips only
-    assert np.abs(kern["counts"] - xla["counts"]).sum() <= 4
 
 
 def test_pdf2d_auto_range_fused_matches_histogram2d():
@@ -245,23 +248,6 @@ def test_pdf2d_auto_range_fused_matches_histogram2d():
     np.testing.assert_allclose(out["xedges"], xe, rtol=0, atol=0)
     np.testing.assert_allclose(out["yedges"], ye, rtol=0, atol=0)
     assert out["counts"].sum() == 5000  # full range keeps every sample
-
-
-def test_pdf2d_auto_range_fused_kernel_path(force_interpret_pdf2d):
-    rng = np.random.default_rng(32)
-    from fava_tpu.ops import pallas_pdf2d as pp
-
-    n = pp._K + 53
-    x = rng.normal(0.0, 1.0, n).astype(np.float32)
-    y = rng.normal(0.0, 2.0, n).astype(np.float32)
-    vol._pdf2d_auto_fn.cache_clear()
-    out = vol.pdf2d(jnp.asarray(x), jnp.asarray(y), nbins=(10, 10), density=False)
-    vol._pdf2d_auto_fn.cache_clear()
-    assert out["counts"].sum() == n
-    ref, _, _ = np.histogram2d(
-        x.astype(np.float64), y.astype(np.float64), bins=[out["xedges"], out["yedges"]]
-    )
-    np.testing.assert_array_equal(out["counts"], ref)
 
 
 def test_pdf2d_auto_range_constant_fields():
@@ -295,7 +281,7 @@ def test_pdf1d_auto_range_constant_field():
 
 
 def test_weighted_pdf1d_no_f32_stall_beyond_2p24():
-    """VERDICT r4 weak #5 regression: > 2^24 samples of one CONSTANT
+    """Regression: > 2^24 samples of one CONSTANT
     f32 weight concentrated in ONE bin, f32 config. A plain f32
     accumulator stops absorbing w-sized increments past 2^24 * w
     (here the true sum is 2x that stall point — a plain f32 path would
@@ -339,7 +325,7 @@ def test_weighted_binned_statistic_no_f32_stall_beyond_2p24():
 
 
 def test_weighted_pdf2d_xla_path_no_f32_stall_beyond_2p24():
-    """The XLA matmul-histogram weighted path (kernel path is TPU-only)
+    """The XLA joint-histogram weighted path
     accumulates across 2^21-sample chunks: > 2^24 * w in one bin must
     survive the cross-chunk double-word accumulation."""
     n = (1 << 25) + 33

@@ -66,10 +66,10 @@ def test_matches_same_draw_oracle(periodic):
 
 @pytest.mark.parametrize("periodic", [False, True])
 def test_f32_counts_exactly_match_f64_oracle(periodic):
-    """The two-float binning contract: with FLOAT32 inputs (the TPU
+    """The two-float binning contract: with FLOAT32 inputs (the device
     production dtype) bin membership must still match the f64 oracle
     exactly — single-f32 distances measurably flip pairs across edges
-    at this pair count (1.1e-4 scaled, VALIDATION.json history)."""
+    at this pair count (1.1e-4 scaled)."""
     rng = np.random.default_rng(61)
     n = 4096
     pos32 = rng.random((n, 3), dtype=np.float32)

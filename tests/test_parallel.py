@@ -272,32 +272,23 @@ def test_ingest_prefetch_block_stacks_sharded(amr_file, eight_device_mesh):
     assert len(snap.fields["dens"].sharding.device_set) == expect
 
 
-def test_pod_series_step_pallas_binning_matches(pod_mesh):
-    """The pod series step with the Pallas chunk-kernel binning (TPU
-    path, forced via interpret mode) must match its scatter-path self
-    and the unsharded flagship step."""
+@pytest.mark.parametrize("n", [32, 48])
+def test_pod_series_step_scatter_binning_matches(pod_mesh, n):
+    """The pod series step (shard_map scatter binning per k-slab) must
+    match the unsharded flagship step for every snapshot."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from fava_tpu import flagship
-    from fava_tpu.ops import pallas_kernels as pk
 
-    fields = flagship.make_example_fields(n=32, dtype=jnp.float64)
+    fields = flagship.make_example_fields(n=n, dtype=jnp.float64)
     ref = flagship.jitted_analysis_step(None)(*fields)
 
     batch_sharding = NamedSharding(pod_mesh, P("snap", "space", None, None))
     stacked = [jax.device_put(jnp.stack([f, f]), batch_sharding) for f in fields]
-
-    pk.FORCE_INTERPRET = True
-    before = pk._build_shell_chunk_fn.cache_info().currsize
-    try:
-        out = flagship.jitted_sharded_series_step(pod_mesh)(*stacked)
-        out = {k: np.asarray(v) for k, v in out.items()}
-    finally:
-        pk.FORCE_INTERPRET = False
-    # Guard against trace-cache staleness making this vacuous.
-    assert pk._build_shell_chunk_fn.cache_info().currsize > before
+    out = flagship.jitted_sharded_series_step(pod_mesh)(*stacked)
+    out = {k: np.asarray(v) for k, v in out.items()}
     for key, want in ref.items():
         for i in (0, 1):
             np.testing.assert_allclose(
@@ -305,29 +296,20 @@ def test_pod_series_step_pallas_binning_matches(pod_mesh):
             )
 
 
-def test_sharded_spectra_pallas_binning_matches(uniform_file_32, eight_device_mesh):
-    """The Pallas chunk-kernel binning inside shard_map (the TPU pod
-    path, forced via interpret mode) must match the scatter-add path
-    and the unsharded spectra."""
+@pytest.mark.parametrize("mesh_shape", [(8,), (4,)])
+def test_sharded_spectra_scatter_binning_matches(uniform_file_32, mesh_shape):
+    """The shard_map spectra (local FFTs, all_to_all, local scatter
+    binning, psum) must match the unsharded spectra."""
     from fava_tpu.mesh.flash_uniform import FlashUniform
-    from fava_tpu.ops import pallas_kernels as pk
 
     uni = FlashUniform(uniform_file_32)
     uni.load()
     ref = uni.kinetic_energy_spectra()  # unsharded (no mesh in context)
 
-    pk.FORCE_INTERPRET = True
-    before = pk._build_shell_chunk_fn.cache_info().currsize
-    try:
-        with use_mesh(eight_device_mesh):
-            uni2 = FlashUniform(uniform_file_32)
-            uni2.load()
-            got = uni2.kinetic_energy_spectra()
-    finally:
-        pk.FORCE_INTERPRET = False
-    # Guard against trace-cache staleness making this test vacuous: the
-    # kernel builder must actually have been invoked.
-    assert pk._build_shell_chunk_fn.cache_info().currsize > before
+    with use_mesh(make_device_mesh(mesh_shape, ("space",))):
+        uni2 = FlashUniform(uniform_file_32)
+        uni2.load()
+        got = uni2.kinetic_energy_spectra()
     for key in ("total", "longitudinal", "transverse"):
         np.testing.assert_allclose(got[key], ref[key], rtol=1e-8, atol=1e-12, err_msg=key)
 
@@ -335,8 +317,7 @@ def test_sharded_spectra_pallas_binning_matches(uniform_file_32, eight_device_me
 def test_example_field_batch_matches_per_seed_fields():
     """make_example_field_batch synthesizes the (S, n, n, n) stacks in
     one jit (no per-snapshot copies — the stack-of-snapshots path
-    transiently doubles the input footprint, the original batch-4 OOM
-    in SERIES_512.json); snapshot i must reproduce
+    transiently doubles the input footprint); snapshot i must reproduce
     make_example_fields(seed=i) to f32 trig rounding (the seed is a
     traced scalar there vs a constant-folded f64 phase)."""
     from fava_tpu import flagship

@@ -93,9 +93,8 @@ def test_full_pipeline_run(pipeline_dir):
 def test_snap_window_axis0_kills_bcid_tie_wobble():
     """A fit-centered window puts both x bounds exactly on the BCID
     rounding tie int32(0.5 + k + 0.5); 1-ulp noise then decides each end
-    independently (measured on chip: a 3-snapshot series extracted 512,
-    511, 512 wide windows — each width wobble recompiles every stage-4
-    TPU program). The snap must give the exact cell count for every
+    independently (a 3-snapshot series extracted 512, 511, 512 wide
+    windows — each width wobble recompiles every stage-4 program). The snap must give the exact cell count for every
     tie-landing window, invariant to ulp-scale noise."""
     from fava_tpu.pipeline.pipeline import snap_window_axis0
 
@@ -303,7 +302,7 @@ def test_flagship_series_oom_fallback(tmp_path, monkeypatch):
     def flaky_step(*stacked):
         calls.append(stacked[0].shape[0])
         if stacked[0].shape[0] > 1:
-            raise RuntimeError("RESOURCE_EXHAUSTED: TPU backend error (simulated)")
+            raise RuntimeError("RESOURCE_EXHAUSTED: out of device memory (simulated)")
         return real_step(*stacked)
 
     monkeypatch.setattr(flagship, "jitted_series_step", lambda: flaky_step)
@@ -351,7 +350,7 @@ def test_flagship_series_pod_oom_fallback_halves_in_padded_units(tmp_path, monke
     def flaky(*stacked):
         calls.append(stacked[0].shape[0])
         if stacked[0].shape[0] > 2:
-            raise RuntimeError("RESOURCE_EXHAUSTED: TPU backend error (simulated)")
+            raise RuntimeError("RESOURCE_EXHAUSTED: out of device memory (simulated)")
         return real(*stacked)
 
     monkeypatch.setattr(flagship, "jitted_sharded_series_step", lambda mesh: flaky)
@@ -371,7 +370,7 @@ def test_flagship_series_pod_oom_fallback_halves_in_padded_units(tmp_path, monke
             )
 
     def always_oom(*stacked):
-        raise RuntimeError("RESOURCE_EXHAUSTED: TPU backend error (simulated)")
+        raise RuntimeError("RESOURCE_EXHAUSTED: out of device memory (simulated)")
 
     monkeypatch.setattr(flagship, "jitted_sharded_series_step", lambda mesh: always_oom)
     with use_mesh(mesh), pytest.raises(RuntimeError, match="RESOURCE_EXHAUSTED"):

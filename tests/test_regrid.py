@@ -204,7 +204,7 @@ def test_sharded_plan_rejects_nondividing_extent(amr_mesh):
         ndim=3,
     )
     assert plan.out_shape[0] % 5 != 0  # fixture geometry sanity
-    with pytest.raises(ValueError, match="divide the space axis"):
+    with pytest.raises(ValueError, match=r"space axis \(5\) to divide the output x extent"):
         ShardedRegridPlan(plan, 5)
 
 
@@ -241,3 +241,50 @@ def test_regrid_mesh_active_distributes_input_blocks(amr_mesh, eight_device_mesh
         # Output is sharded over the space axis (not fully replicated).
         assert len(got.sharding.device_set) == 8
         np.testing.assert_allclose(np.asarray(got), expected[key], rtol=1e-12)
+
+
+@pytest.mark.parametrize(
+    "ncells,refine,plan_kwargs",
+    [
+        ((8, 8, 8), {0: 2, 5: 3}, {}),  # power-of-two blocks, full domain
+        ((8, 8, 8), {0: 2, 5: 3}, {"subdomain_coords": np.array([[0.3, 0.8], [0.25, 0.75], [0.2, 0.7]])}),
+        ((8, 8, 8), {1: 3}, {"refine_to": 2}),  # refinement truncated below the finest level
+        ((6, 12, 10), {0: 2}, {}),  # non-power-of-two, unequal block extents
+    ],
+    ids=["pow2_full", "pow2_subdomain", "refine_truncation", "non_pow2"],
+)
+def test_regrid_fields_gather_matches_oracle(ncells, refine, plan_kwargs):
+    """The XLA gather regrid of in-memory block stacks is an exact copy
+    of the oracle's per-cell mapping."""
+    import jax
+
+    from fava_tpu.io import synthetic
+    from fava_tpu.ops import regrid as regrid_ops
+
+    snap = synthetic.amr_snapshot(ncells=ncells, nblks=(2, 2, 2), refine=refine)
+    meta = snap["metadata"]
+    names = ["dens", "velx"]
+    stacks = {k: snap["fields"][k] for k in names}
+    plan = regrid_ops.RegridPlan(
+        block_bounds=meta["bounding box"],
+        node_type=meta["node type"],
+        refine_level=meta["refine level"],
+        ncells_vec=np.array(ncells),
+        nblks_vec=np.array([2, 2, 2]),
+        ndim=3,
+        **plan_kwargs,
+    )
+    got = regrid_ops.regrid_fields(plan, {k: jax.device_put(v) for k, v in stacks.items()}, names)
+    expected, total = from_amr_oracle(
+        stacks,
+        block_bounds=meta["bounding box"],
+        node_type=meta["node type"],
+        refine_level=meta["refine level"].astype(int),
+        ncells=np.array(ncells),
+        nblks=np.array([2, 2, 2]),
+        fields=names,
+        **plan_kwargs,
+    )
+    for key in names:
+        assert got[key].shape == tuple(int(t) for t in total)
+        np.testing.assert_array_equal(np.asarray(got[key]), expected[key], err_msg=key)

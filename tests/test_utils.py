@@ -2,6 +2,7 @@
 
 import os
 import signal
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -85,8 +86,26 @@ def test_to_device_casts():
     assert d.dtype == precision.compute_dtype()
 
 
-def test_enable_compilation_cache(tmp_path):
-    target = tmp_path / "cache"
-    got = utils.enable_compilation_cache(target)
-    assert got == target and target.is_dir()
-    assert jax.config.jax_compilation_cache_dir == str(target)
+def test_enable_compilation_cache(monkeypatch):
+    """Without JAX_COMPILATION_CACHE_DIR the cache is <checkout>/.jax_cache."""
+    import fava_tpu
+    from fava_tpu.utils import cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    target = Path(fava_tpu.__file__).resolve().parents[1] / ".jax_cache"
+    prev = jax.config.jax_compilation_cache_dir
+    try:
+        got = utils.enable_compilation_cache()
+        assert got == target == cache.CHECKOUT_CACHE and target.is_dir()
+        assert jax.config.jax_compilation_cache_dir == str(target)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev)
+
+
+def test_compilation_cache_env_is_honoured(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, the code sets no cache dir."""
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env_cache"))
+    prev = jax.config.jax_compilation_cache_dir
+    got = utils.enable_compilation_cache()
+    assert got == tmp_path / "env_cache"
+    assert jax.config.jax_compilation_cache_dir == prev

@@ -1,7 +1,6 @@
 """Spectral velocity diagnostics vs the full-grid NumPy oracle.
 
-The device path works on the z-rfft half spectrum (dense MXU matmuls on
-TPU, jnp.fft here); the oracle is an independent full-grid np.fft
+The device path works on the z-rfft half spectrum (jnp.fft); the oracle is an independent full-grid np.fft
 implementation — exact agreement (f64 CPU) checks both the transforms
 and the Nyquist/Hermitian conventions.
 """
